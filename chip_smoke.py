@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end check of the PyTorch/CUDA port (``src/repro_torch``) on one
-NVIDIA card.
+NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
+and nbody (the paper's five benchmarks).
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,22 +10,27 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device  — the card's name, count and power limit; its hardware spec.
-2. build   — every CUDA source in ``src/repro_torch/csrc``, with nvcc's
-             register / shared-memory / spill report.
-3. check   — each kernel against its plain PyTorch version on the card, at
-             every registry input plus a ragged one, smallest and largest
-             tiles, both loop orders (TF32 off).
-4. sweep   — ``DeviceKernelEvaluator`` over the whole GEMM space at 2048³
-             and at 16x4096x4096: the measured ground truth.
-5. main    — Algorithm 1 live: ``train_on_evaluator`` on 16x4096x4096,
-             ``save_model``; a new session on 2048³ ``load_model`` and
-             ``tune(budget=25, searcher="profile")`` through the card
-             evaluator.  Launch counts are zeroed just before and read just
-             after; every kernel of the path must have launched.
+2. build   — every CUDA source in ``src/repro_torch/csrc``, one ``nvcc``
+             each, all started together, with nvcc's register /
+             shared-memory / spill report.
+Then, kernel by kernel (the table ``PORTS``):
+3. check   — the kernel against its plain PyTorch version on the card, at
+             every registry input plus a ragged one, at the smallest and
+             largest tiles and each value of every parameter that changes
+             the code path (TF32 off); transpose must be exact.
+4. sweep   — ``DeviceKernelEvaluator`` over the whole space at the tune
+             input (and at the GEMM's 16x4096x4096 and nbody's 131072
+             too): the measured ground truth.
+5. main    — Algorithm 1 live: ``train_on_evaluator`` on the train input,
+             ``save_model``; a new session on the tune input ``load_model``
+             and ``tune(budget=25, searcher="profile")`` through the card
+             evaluator.  Every launch count is zeroed just before and read
+             just after; the kernel of the path must have launched.
 6. replay  — the paper's trials-to-well metric, profile vs random searcher,
-             100 seeds each, replayed on both measured records.
-7. report  — one JSON line with each kernel's times, bound and launches,
-             the card's name and power limit, and a last line
+             100 seeds each, replayed on each measured record.
+7. report  — one JSON line with each kernel's times (best and default
+             configuration, plain version, library call), its bound and
+             launches; the card's name and power limit; and a last line
              ``{"ok": true, "device": {...}}``.
 
 The script needs CUDA and the checkout's ``src/``; without either it exits
@@ -32,32 +38,109 @@ non-zero before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
+import importlib
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ARTIFACT_DIR = ROOT / "build" / "chip_smoke"
 
-REL_TOL = 2e-4          # max |kernel - plain| / max |plain|: fp32 sum order
 WELL_FACTOR = 1.1       # paper §4.1: within 10 % of the best
 TUNE_BUDGET = 25
 REPLAY_SEEDS = 100
-CHECK_CONFIGS = (       # (BLOCK_M, BLOCK_N, BLOCK_K, LOOP_ORDER)
-    (64, 64, 128, "mnk"),     # smallest tile
-    (512, 512, 1024, "nmk"),  # largest tile
-    (128, 256, 256, "nmk"),
-    (256, 64, 512, "mnk"),
-)
 NOT_PORTED = (
-    ("conv2d", "src/repro/kernels/conv2d/kernel.py:78"),
-    ("transpose", "src/repro/kernels/transpose/kernel.py:37"),
-    ("coulomb", "src/repro/kernels/coulomb/kernel.py:84"),
-    ("nbody", "src/repro/kernels/nbody/kernel.py:72"),
     ("flash_attention", "src/repro/kernels/attention/kernel.py:105"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Port:
+    """One ported kernel and how this script drives it.  Configurations are
+    value tuples in the order of the space's parameters; inputs are
+    (class name in the kernel's ``space`` module, fields)."""
+
+    name: str
+    replaces: str            # the TPU kernel's pallas_call, file:line
+    tol: float               # max |kernel - plain| / max |plain|; 0: exact
+    checks: Tuple[tuple, ...]
+    ragged: Tuple[str, tuple]
+    sweeps: Tuple[str, ...]  # registry inputs swept; the tune input first
+    train: str               # registry input the model is trained on
+    default: tuple           # the wrapper's defaults, as a configuration
+    library: Optional[str]   # one PyTorch call computing the same function
+    work: Callable           # inp -> (bytes, fp32 operations, rsqrt)
+    input_space: bool = False      # make_space(inp): the GEMM's pruning
+    plain_kw: Optional[Callable] = None  # cfg -> plain version's kwargs
+
+    @property
+    def tune(self) -> str:
+        return self.sweeps[0]
+
+
+def _gemm_kw(cfg):
+    return dict(block_m=cfg["BLOCK_M"], block_n=cfg["BLOCK_N"],
+                block_k=cfg["BLOCK_K"], loop_order=cfg["LOOP_ORDER"])
+
+
+# Checks take each kernel's smallest and largest tiles; those of the four
+# kernels after the GEMM also take every value of every parameter that
+# changes the code path at least once.
+PORTS = (
+    Port("matmul", "src/repro/kernels/matmul/kernel.py:82", 2e-4,
+         checks=((64, 64, 128, "mnk", 1),      # smallest tile
+                 (512, 512, 1024, "nmk", 1),   # largest tile
+                 (128, 256, 256, "nmk", 1),
+                 (256, 64, 512, "mnk", 1)),
+         ragged=("GemmInput", (1000, 1000, 1000)),
+         sweeps=("2048", "16x4096"), train="16x4096",
+         default=(128, 128, 128, "mnk", 1), library="torch.matmul(a, b)",
+         work=lambda i: (4.0 * (i.m * i.k + i.k * i.n + i.m * i.n),
+                         2.0 * i.m * i.n * i.k, 0.0),
+         input_space=True, plain_kw=_gemm_kw),
+    Port("transpose", "src/repro/kernels/transpose/kernel.py:37", 0.0,
+         checks=((8, 8, 0), (1024, 1024, 1), (16, 512, 1), (32, 256, 0),
+                 (64, 128, 1), (128, 64, 0), (256, 32, 1), (512, 16, 0)),
+         ragged=("TransposeInput", (1000, 1500)),
+         sweeps=("8192",), train="8192", default=(256, 256, 1),
+         library="x.t().contiguous()",
+         work=lambda i: (8.0 * i.m * i.n, 0.0, 0.0)),
+    Port("conv2d", "src/repro/kernels/conv2d/kernel.py:78", 1e-3,
+         checks=((8, 128, 0, 0, 1), (512, 1024, 1, 1, 4),
+                 (16, 256, 1, 0, 2), (32, 512, 0, 1, 1),
+                 (64, 1024, 1, 0, 1), (128, 128, 0, 1, 2),
+                 (256, 256, 1, 1, 4)),
+         ragged=("ConvInput", (1000, 1500, 5)),
+         sweeps=("4096",), train="4096", default=(128, 256, 1, 1, 1),
+         library="F.conv2d(img, flt, padding=F // 2), cuDNN TF32 off",
+         work=lambda i: (4.0 * (2 * i.h * i.w + i.f * i.f),
+                         2.0 * i.f * i.f * i.h * i.w, 0.0)),
+    Port("coulomb", "src/repro/kernels/coulomb/kernel.py:84", 5e-4,
+         checks=((1, 4, 64, 4, 0), (64, 8, 1024, 256, 1),
+                 (2, 64, 1024, 16, 0), (4, 32, 128, 64, 1),
+                 (8, 64, 256, 256, 0), (16, 16, 512, 64, 0),
+                 (32, 16, 64, 4, 1), (64, 8, 128, 256, 0)),
+         ragged=("CoulombInput", (100, 5000)),   # > 4096 constant atoms
+         sweeps=("default",), train="small_grid",
+         default=(4, 8, 128, 32, 0), library=None,
+         work=lambda i: (16.0 * i.n_atoms + 4.0 * i.grid_size**3,
+                         6.0 * i.grid_size**3 * i.n_atoms
+                         + 5.0 * i.grid_size**2 * i.n_atoms,
+                         float(i.grid_size**3 * i.n_atoms))),
+    Port("nbody", "src/repro/kernels/nbody/kernel.py:72", 1e-3,
+         checks=((8, 32, 1, 0), (1024, 2048, 4, 1), (16, 64, 2, 0),
+                 (32, 128, 4, 1), (64, 256, 1, 0), (128, 512, 2, 1),
+                 (256, 1024, 4, 0), (512, 2048, 1, 1)),
+         ragged=("NBodyInput", (10000,)),
+         sweeps=("16k", "131k"), train="131k", default=(256, 256, 1, 0),
+         library=None,
+         work=lambda i: (32.0 * i.n, 18.0 * i.n * i.n, float(i.n * i.n))),
 )
 
 
@@ -95,40 +178,74 @@ def time_ms(fn, reps: int, flush=None) -> float:
     return times[len(times) // 2]
 
 
+def _module(port: Port, part: str):
+    return importlib.import_module(f"repro_torch.kernels.{port.name}.{part}")
+
+
+def _wrappers():
+    """The wrapper of every ported kernel (each carries ``launches``)."""
+    return {p.name: getattr(_module(p, "kernel"), p.name) for p in PORTS}
+
+
+def _config(bench, values) -> Dict:
+    return {p.name: v for p, v in zip(bench.make_space().parameters, values)}
+
+
+def _space(port: Port, bench, inp):
+    return _module(port, "space").make_space(inp) if port.input_space \
+        else bench.make_space()
+
+
 def phase_build():
     from repro_torch.kernels import common
 
-    for src in sorted(p.name for p in common.CSRC_DIR.glob("*.cu")):
-        report = common.build(src)
+    sources = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        reports = list(pool.map(common.build, sources))
+    for src, report in zip(sources, reports):
         log(f"[build] {src} -> {common.library_path(src).name}")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "smem")):
                 log(f"[build]   {line.strip()}")
+    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_check(bench, inputs, device):
+def phase_check(port: Port, bench, device):
     """Kernel against its plain version; returns (max_abs_err, max_rel)."""
     import numpy as np
+    import torch
 
-    from repro_torch.kernels.matmul.kernel import matmul, matmul_plain
-
+    plain = getattr(_module(port, "kernel"), f"{port.name}_plain")
+    cls, fields = port.ragged
+    inputs = dict(bench.inputs)
+    inputs["ragged"] = getattr(_module(port, "space"), cls)(*fields)
     worst_abs = worst_rel = 0.0
     for tag, inp in inputs.items():
-        a, b = bench.make_args(inp, np.random.default_rng(0), device)
-        for bm, bn, bk, order in CHECK_CONFIGS:
-            kw = dict(block_m=bm, block_n=bn, block_k=bk, loop_order=order)
-            out = matmul(a, b, **kw)
-            ref = matmul_plain(a, b, **kw)
+        args = bench.make_args(inp, np.random.default_rng(0), device)
+        ref = None if port.plain_kw else plain(*args)
+        for values in port.checks:
+            cfg = _config(bench, values)
+            out = bench.run(cfg, *args)
+            if port.plain_kw:
+                ref = plain(*args, **port.plain_kw(cfg))
             if out.shape != ref.shape or not bool(out.isfinite().all()):
-                raise AssertionError(f"matmul {tag} {kw}: bad output")
+                raise AssertionError(f"{port.name} {inp.tag} {cfg}: bad "
+                                     "output")
             err = float((out - ref).abs().max())
             rel = err / (float(ref.abs().max()) + 1e-30)
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-            if rel > REL_TOL:
-                raise AssertionError(
-                    f"matmul {tag} {kw}: rel err {rel:.3e} > {REL_TOL}")
-        log(f"[check] matmul {tag}: {len(CHECK_CONFIGS)} configs within "
-            f"{REL_TOL} of the plain version")
+            if port.tol == 0.0 and not torch.equal(out, ref):
+                raise AssertionError(f"{port.name} {inp.tag} {cfg}: not "
+                                     f"exact (max abs err {err:.3e})")
+            if rel > port.tol:
+                raise AssertionError(f"{port.name} {inp.tag} {cfg}: rel err "
+                                     f"{rel:.3e} > {port.tol}")
+        log(f"[check] {port.name} {tag} ({inp.tag}): {len(port.checks)} "
+            f"configs {'exact' if port.tol == 0.0 else f'within {port.tol}'}"
+            f" against the plain version")
+        del args, ref
     return worst_abs, worst_rel
 
 
@@ -143,12 +260,13 @@ def phase_sweep(bench, space, inp, hw, device):
     rec = ev.recorded()
     best, worst = int(rec.runtimes.argmin()), int(rec.runtimes.argmax())
     summary = {
-        "configs": len(space), "host_s": time.perf_counter() - t0,
+        "input": inp.tag, "configs": len(space),
+        "host_s": time.perf_counter() - t0,
         "best_config": space[best], "best_ms": rec.runtimes[best] * 1e3,
         "worst_config": space[worst], "worst_ms": rec.runtimes[worst] * 1e3,
         "within_well_factor": int(rec.well_performing_mask(WELL_FACTOR).sum()),
     }
-    log(f"[sweep] {inp.tag}: {summary['configs']} configs in "
+    log(f"[sweep] {bench.name} {inp.tag}: {summary['configs']} configs in "
         f"{summary['host_s']:.1f} s; best {space[best]} "
         f"{summary['best_ms']:.4f} ms, worst {space[worst]} "
         f"{summary['worst_ms']:.4f} ms, {summary['within_well_factor']} "
@@ -156,59 +274,61 @@ def phase_sweep(bench, space, inp, hw, device):
     return rec, summary
 
 
-def phase_main(bench, train_inp, tune_inp, hw, device, rec):
-    """The user's path; returns (launch counts, model, summary)."""
+def phase_main(port: Port, bench, hw, device, rec):
+    """The user's path; returns (launches of its kernel, model, summary)."""
     from repro_torch.core.evaluate import DeviceKernelEvaluator
-    from repro_torch.kernels.matmul import space as gemm_space
-    from repro_torch.kernels.matmul.kernel import matmul
     from repro_torch.tuning import TuningSession
 
-    def card(inp):
-        return lambda space: DeviceKernelEvaluator(space, bench, inp, hw=hw,
-                                                   device=device)
+    train_inp, tune_inp = bench.inputs[port.train], bench.inputs[port.tune]
+
+    def session(inp):
+        return TuningSession(
+            _space(port, bench, inp), lambda c: bench.workload_fn(c, inp),
+            hw=hw, evaluator_factory=lambda space: DeviceKernelEvaluator(
+                space, bench, inp, hw=hw, device=device))
 
     ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
-    path = str(ARTIFACT_DIR / "gemm_tppc.json")
-    matmul.launches = 0
-    trainer = TuningSession(
-        gemm_space.make_space(train_inp),
-        lambda c: bench.workload_fn(c, train_inp), hw=hw,
-        evaluator_factory=card(train_inp))
+    path = str(ARTIFACT_DIR / f"{port.name}_tppc.json")
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    trainer = session(train_inp)
     train_ev = trainer.make_evaluator()
     trainer.train_on_evaluator(train_ev)
     trainer.save_model(path)
-    train_launches = matmul.launches
-    tuner = TuningSession(
-        bench.make_space(), lambda c: bench.workload_fn(c, tune_inp), hw=hw,
-        evaluator_factory=card(tune_inp))
+    train_launches = wrappers[port.name].launches
+    tuner = session(tune_inp)
     model = tuner.load_model(path)
     ev = tuner.make_evaluator()
     result = tuner.tune(budget=TUNE_BUDGET, searcher="profile", evaluator=ev)
-    launches = {"matmul": matmul.launches}
+    launches = {name: w.launches for name, w in wrappers.items()}
     well = rec.well_performing_mask(WELL_FACTOR)
     steps = next((s for s, (idx, _) in enumerate(ev.history(), 1)
                   if well[idx]), None)
-    log(f"[main] trained on {train_inp.tag} with {train_ev.steps} profiled "
-        f"tests in {train_ev.elapsed:.3f} s of host time; artifact {path}")
-    log(f"[main] tuned {tune_inp.tag}: {result.steps} tests in "
+    log(f"[main] {port.name}: trained on {train_inp.tag} with "
+        f"{train_ev.steps} profiled tests in {train_ev.elapsed:.3f} s of "
+        f"host time; artifact {path}")
+    log(f"[main] {port.name}: tuned {tune_inp.tag}: {result.steps} tests in "
         f"{ev.elapsed:.3f} s of host time, best {result.best_config} "
         f"{result.best_runtime * 1e3:.4f} ms; first within {WELL_FACTOR}x "
         f"of the sweep's best at step "
         f"{steps if steps is not None else f'> {TUNE_BUDGET} (not reached)'}")
-    log(f"[main] launches: {launches} ({train_launches} while training)")
-    if any(n <= 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
+    log(f"[main] {port.name}: launches {launches} ({train_launches} while "
+        f"training)")
+    if launches[port.name] <= 0:
+        raise AssertionError(f"{port.name} never launched on its main path: "
                              f"{launches}")
     summary = {
+        "train_input": train_inp.tag, "tune_input": tune_inp.tag,
         "steps_to_well": steps,
         "train_tests": train_ev.steps, "train_host_s": train_ev.elapsed,
         "train_launches": train_launches,
         "tune_tests": ev.steps, "tune_host_s": ev.elapsed,
-        "tune_launches": launches["matmul"] - train_launches,
+        "tune_launches": launches[port.name] - train_launches,
         "tuned_config": result.best_config,
         "tuned_ms": result.best_runtime * 1e3,
     }
-    return launches, model, summary
+    return launches[port.name], model, summary
 
 
 def phase_replay(rec, model, hw):
@@ -229,36 +349,102 @@ def phase_replay(rec, model, hw):
     return out
 
 
-def kernel_times(bench, inp, rec, hw, device, flush):
-    """Times of the kernel (default and best config), its plain version,
-    the library call and the bound, at one input."""
-    import numpy as np
+def bound(port: Port, inp, hw):
+    """The least time the card could take: the larger of the bytes the
+    function must move over the memory rate and its operations over the
+    peak rate of their unit (hwspec, data-sheet or derived)."""
+    nbytes, fp32, sfu = port.work(inp)
+    times = {"bytes (dram_bw)": nbytes / hw.dram_bw * 1e3,
+             "fp32 (fp32_flops)": fp32 / hw.fp32_flops * 1e3,
+             "rsqrt (sfu_ops)": sfu / hw.sfu_ops * 1e3}
+    unit = max(times, key=times.get)
+    return {"bound_ms": times[unit],
+            "bound_by": "bytes" if unit.startswith("bytes") else "operations",
+            "bound_unit": unit, "bound_terms_ms": times}
+
+
+def _library(port: Port):
     import torch
+    import torch.nn.functional as F
 
-    from repro_torch.kernels.matmul.kernel import matmul_plain
-
-    a, b = bench.make_args(inp, np.random.default_rng(0), device)
-    best = rec.space[int(rec.runtimes.argmin())]
-    default = {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 128,
-               "LOOP_ORDER": "mnk", "ACC_F32": 1}   # the wrapper's defaults
-    kw = dict(block_m=best["BLOCK_M"], block_n=best["BLOCK_N"],
-              block_k=best["BLOCK_K"], loop_order=best["LOOP_ORDER"])
-    run = bench.run
-    ms_best = time_ms(lambda: run(best, a, b), 20, flush)
-    ms_default = time_ms(lambda: run(default, a, b), 20, flush)
-    plain_ms = time_ms(lambda: matmul_plain(a, b, **kw), 3, flush)
-    library_ms = time_ms(lambda: torch.matmul(a, b), 20, flush)
-    flops = 2.0 * inp.m * inp.n * inp.k
-    nbytes = 4.0 * (inp.m * inp.k + inp.k * inp.n + inp.m * inp.n)
-    t_ops, t_bytes = flops / hw.fp32_flops * 1e3, nbytes / hw.dram_bw * 1e3
     return {
+        "matmul": lambda a, b: torch.matmul(a, b),
+        "transpose": lambda x: x.t().contiguous(),
+        "conv2d": lambda img, flt: F.conv2d(img[None, None], flt[None, None],
+                                            padding=flt.shape[0] // 2),
+    }.get(port.name)
+
+
+def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
+    """Times of the kernel (best and default config), its plain version and
+    the library call, and the bound, at one input."""
+    import numpy as np
+
+    args = bench.make_args(inp, np.random.default_rng(0), device)
+    best = rec.space[int(rec.runtimes.argmin())]
+    default = _config(bench, port.default)
+    plain = getattr(_module(port, "kernel"), f"{port.name}_plain")
+    kw = port.plain_kw(best) if port.plain_kw else {}
+    run = bench.run
+    ms_best = time_ms(lambda: run(best, *args), 20, flush)
+    ms_default = time_ms(lambda: run(default, *args), 20, flush)
+    plain_ms = time_ms(lambda: plain(*args, **kw), 3, flush)
+    library = _library(port)
+    library_ms = (time_ms(lambda: library(*args), 20, flush)
+                  if library is not None else None)
+    out = {
         "shape": inp.tag, "best_config": best,
         "ms": ms_best, "kernel_ms_best": ms_best,
-        "kernel_ms_default": ms_default, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "kernel_ms_default": ms_default, "default_config": default,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": port.library or "none: no single PyTorch call "
+                                        "computes this function",
     }
+    out.update(bound(port, inp, hw))
+    return out
+
+
+def run_port(port: Port, hw, device):
+    """Phases 3-6 for one kernel; returns the head and the rest of its
+    report entry (the times go between them) and its measured records."""
+    import torch
+
+    from repro_torch.kernels.registry import BENCHMARKS
+
+    bench = BENCHMARKS[port.name]
+    seconds = {}
+    t0 = time.perf_counter()
+    max_abs, max_rel = phase_check(port, bench, device)
+    seconds["check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records, sweeps = {}, {}
+    for tag in port.sweeps:
+        inp = bench.inputs[tag]
+        records[tag], sweeps[tag] = phase_sweep(
+            bench, _space(port, bench, inp), inp, hw, device)
+    seconds["sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, model, main_path = phase_main(port, bench, hw, device,
+                                            records[port.tune])
+    seconds["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    main_path["replay"] = {sweeps[tag]["input"]: phase_replay(rec, model, hw)
+                           for tag, rec in records.items()}
+    seconds["replay"] = time.perf_counter() - t0
+    log(f"[time] {port.name}: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()))
+    torch.cuda.empty_cache()
+    head = {
+        "name": port.name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{port.name}.cu",
+        "replaces": port.replaces, "launches": launches,
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "tolerance": port.tol,
+    }
+    rest = {"main_path": main_path,
+            "sweeps": {sweeps[t]["input"]: sweeps[t] for t in port.sweeps},
+            "host_s": seconds}
+    return head, rest, records
 
 
 def main() -> int:
@@ -273,8 +459,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core import hwspec
+    from repro_torch.core.evaluate import L2_FLUSH_BYTES
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.matmul import space as gemm_space
     from repro_torch.kernels.registry import BENCHMARKS
 
     t_start = time.perf_counter()
@@ -291,47 +477,35 @@ def main() -> int:
     # phase 2: build
     phase_build()
 
-    # phase 3: kernel against plain version
-    bench = BENCHMARKS["matmul"]
-    inputs = dict(bench.inputs)
-    inputs["1000x1000x1000"] = gemm_space.GemmInput(1000, 1000, 1000)
-    max_abs, max_rel = phase_check(bench, inputs, device)
-
-    # phase 4: exhaustive sweeps
-    big, tall = bench.inputs["2048"], bench.inputs["16x4096"]
-    rec_big, sweep_big = phase_sweep(bench, bench.make_space(), big, hw,
-                                     device)
-    rec_tall, sweep_tall = phase_sweep(bench, gemm_space.make_space(tall),
-                                       tall, hw, device)
-
-    # phase 5: the main path, live
-    launches, model, main_path = phase_main(bench, tall, big, hw, device,
-                                            rec_big)
-
-    # phase 6: replay on both measured records
-    main_path["replay"] = {rec.input_tag: phase_replay(rec, model, hw)
-                           for rec in (rec_big, rec_tall)}
+    # phases 3-6, kernel by kernel
+    results = [run_port(port, hw, device) for port in PORTS]
 
     # phase 7: report
-    from repro_torch.core.evaluate import L2_FLUSH_BYTES
-
+    t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
-    entry = {
-        "name": "matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/matmul.cu",
-        "replaces": "src/repro/kernels/matmul/kernel.py:82",
-        "launches": launches["matmul"],
-        "max_abs_err": max_abs, "max_rel_err": max_rel,
-    }
-    entry.update(kernel_times(bench, big, rec_big, hw, device, flush))
-    entry["at_" + tall.tag] = kernel_times(bench, tall, rec_tall, hw, device,
-                                           flush)
-    entry["main_path"] = main_path
-    entry["sweeps"] = {big.tag: sweep_big, tall.tag: sweep_tall}
-    report = {"kernels": [entry],
+    entries = []
+    for port, (head, rest, records) in zip(PORTS, results):
+        bench = BENCHMARKS[port.name]
+        times = kernel_times(port, bench, bench.inputs[port.tune],
+                             records[port.tune], hw, device, flush)
+        entry = {**head, **times, **rest}
+        for tag in port.sweeps[1:]:
+            entry["at_" + bench.inputs[tag].tag] = kernel_times(
+                port, bench, bench.inputs[tag], records[tag], hw, device,
+                flush)
+        entries.append(entry)
+        library = times["library_ms"]
+        log(f"[report] {port.name} {times['shape']}: best "
+            f"{times['kernel_ms_best']:.4f} ms, default "
+            f"{times['kernel_ms_default']:.4f} ms, plain "
+            f"{times['plain_ms']:.4f} ms, library "
+            f"{'none' if library is None else f'{library:.4f} ms'}, bound "
+            f"{times['bound_ms']:.4f} ms ({times['bound_unit']})")
+    report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED]}
+    log(f"[time] report {time.perf_counter() - t0:.1f} s")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps(report))

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -98,3 +98,22 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(source)))
         _LOADED[source] = lib
     return lib
+
+
+def entry(source: str, symbol: str, argtypes) -> Callable[..., int]:
+    """The plain C entry ``symbol`` of ``csrc/<source>``, returning a
+    ``cudaError_t`` as int.  Pointers and the stream go as ``c_void_p``:
+    ctypes would pass a bare Python int as a 32-bit int and cut it."""
+    fn = getattr(load_library(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn: Callable[..., int], device, *args) -> int:
+    """Call the C entry ``fn`` with ``args`` and then the current stream of
+    CUDA ``device``; returns its ``cudaError_t``."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

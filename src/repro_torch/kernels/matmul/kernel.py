@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import cdiv, load_library
+from repro_torch.kernels.common import cdiv, entry, launch
 
 SOURCE = "matmul.cu"
 _LOOP_ORDERS = {"mnk": 0, "nmk": 1}
@@ -34,10 +34,7 @@ _INT_MAX = 2**31 - 1
 
 @functools.cache
 def _entry():
-    fn = load_library(SOURCE).repro_matmul_f32
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return entry(SOURCE, "repro_matmul_f32", _ARGTYPES)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
@@ -100,11 +97,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return c
-    fn = _entry()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, block_m,
-                block_n, block_k, _LOOP_ORDERS[loop_order], stream)
+    rc = launch(_entry(), a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                m, n, k, block_m, block_n, block_k, _LOOP_ORDERS[loop_order])
     if rc != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc} "
                            f"at {(m, n, k)} with blocks "

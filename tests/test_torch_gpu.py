@@ -5,17 +5,24 @@ This file imports no JAX, so that it runs where the card is and JAX is not:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  Without a card every
 test skips, decided at run time by the ``cuda`` fixture.
 
-Tolerance: relative 2e-4 of max |plain|, the matmul tolerance of the JAX
-package's kernel tests; the sums run in another order.
+Tolerances, relative to max |plain|, are those of the JAX package's kernel
+tests: matmul 2e-4, transpose exact, conv2d 1e-3, coulomb 5e-4, nbody 1e-3;
+the sums run in another order (and rsqrt is the hardware's approximation).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.evaluate import DeviceKernelEvaluator
+from repro_torch.kernels.conv2d.space import ConvInput
+from repro_torch.kernels.coulomb.space import CoulombInput
 from repro_torch.kernels.matmul import kernel as K
 from repro_torch.kernels.matmul import space as S
+from repro_torch.kernels.nbody.space import NBodyInput
 from repro_torch.kernels.registry import BENCHMARKS
+from repro_torch.kernels.transpose.space import TransposeInput
 
 TOL = 2e-4
 
@@ -26,6 +33,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -90,3 +98,88 @@ def test_a_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         K.matmul(a, b)
     assert K.matmul.launches == before
+
+
+# The four other paper kernels: (kernel, tolerance, inputs, configs).  Each
+# input is a ragged size or a registry input; the configs take the smallest
+# and largest tiles and each value of every parameter that changes the code
+# path.
+PAPER = {
+    "transpose": (0.0, [TransposeInput(200, 264), TransposeInput(96, 512),
+                        TransposeInput(8192, 8192)],
+                  [(8, 8, 0), (1024, 1024, 1), (32, 256, 1), (256, 32, 0)]),
+    "conv2d": (1e-3, [ConvInput(1000, 1500, 5), ConvInput(37, 300, 3),
+                      ConvInput(4096, 4096, 5)],
+               [(8, 128, 0, 0, 1), (512, 1024, 1, 1, 4), (32, 256, 1, 0, 2),
+                (128, 512, 0, 1, 1)]),
+    "coulomb": (5e-4, [CoulombInput(40, 5000), CoulombInput(33, 100),
+                       CoulombInput(256, 256)],
+                [(1, 4, 64, 4, 0), (64, 8, 1024, 256, 1), (2, 64, 1024, 16, 0),
+                 (4, 32, 128, 64, 1), (8, 64, 256, 256, 0),
+                 (16, 16, 512, 64, 0), (32, 16, 64, 4, 1)]),
+    "nbody": (1e-3, [NBodyInput(10000), NBodyInput(200), NBodyInput(16384)],
+              [(8, 32, 1, 0), (1024, 2048, 4, 1), (64, 256, 2, 0),
+               (256, 128, 1, 1)]),
+}
+PAPER_CASES = [(k, i) for k, (_, inputs, _) in PAPER.items()
+               for i in range(len(inputs))]
+
+
+def _plain(kernel):
+    return getattr(importlib.import_module(
+        f"repro_torch.kernels.{kernel}.kernel"), f"{kernel}_plain")
+
+
+def _wrapper(kernel):
+    return getattr(importlib.import_module(
+        f"repro_torch.kernels.{kernel}.kernel"), kernel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,which", PAPER_CASES,
+                         ids=[f"{k}-{i}" for k, i in PAPER_CASES])
+def test_paper_kernel_matches_its_plain_version(cuda, kernel, which):
+    tol, inputs, configs = PAPER[kernel]
+    bench = BENCHMARKS[kernel]
+    names = list(bench.make_space().parameters)
+    args = bench.make_args(inputs[which], np.random.default_rng(0), cuda)
+    ref = _plain(kernel)(*args)
+    wrapper = _wrapper(kernel)
+    for values in configs:
+        cfg = {p.name: v for p, v in zip(names, values)}
+        before = wrapper.launches
+        out = bench.run(cfg, *args)
+        assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(out.isfinite().all())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        if tol == 0.0:
+            assert torch.equal(out, ref), cfg
+        else:
+            assert err < tol, (cfg, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", list(PAPER))
+def test_paper_kernels_never_reach_the_plain_version(cuda, kernel,
+                                                     monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}.kernel")
+    monkeypatch.setattr(mod, f"{kernel}_plain", refuse)
+    bench = BENCHMARKS[kernel]
+    args = bench.make_args(PAPER[kernel][1][1], np.random.default_rng(0),
+                           cuda)
+    bench.run(bench.make_space()[0], *args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", list(PAPER))
+def test_card_evaluator_times_each_paper_kernel(cuda, kernel):
+    bench = BENCHMARKS[kernel]
+    inp = PAPER[kernel][1][1]
+    ev = DeviceKernelEvaluator(bench.make_space(), bench, inp, reps=3)
+    cs = ev.profile(len(ev.space) - 1)
+    assert 0 < cs.runtime < 1.0

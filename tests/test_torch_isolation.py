@@ -47,8 +47,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     names = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"repro_torch.core.searcher", "repro_torch.core.evaluate",
                 "repro_torch.tuning.session", "repro_torch.tuning.serialize",
-                "repro_torch.kernels.matmul.kernel",
-                "repro_torch.kernels.registry"}
+                "repro_torch.kernels.registry"} | {
+        f"repro_torch.kernels.{k}.{part}"
+        for k in ("matmul", "transpose", "conv2d", "coulomb", "nbody")
+        for part in ("kernel", "ops", "ref", "space")}
     assert expected <= set(names)
 
 

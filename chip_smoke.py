@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """End-to-end check of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
-and nbody (the paper's five benchmarks).
+and nbody (the paper's five benchmarks) and flash attention; then the
+cross-space transfer path of the ``ConfigStore`` on the card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -28,10 +29,14 @@ Then, kernel by kernel (the table ``PORTS``):
              just after; the kernel of the path must have launched.
 6. replay  — the paper's trials-to-well metric, profile vs random searcher,
              100 seeds each, replayed on each measured record.
-7. report  — one JSON line with each kernel's times (best and default
+7. transfer — the cross-space warm start (``phase_transfer``): a store of
+             the TP→PC models phase 5 trained, a target space left out of
+             it, the similarity-weighted committee of the others, replay and
+             one live tune on the card; conv2d/4096, then attention.
+8. report  — one JSON line with each kernel's times (best and default
              configuration, plain version, library call), its bound and
-             launches; the card's name and power limit; and a last line
-             ``{"ok": true, "device": {...}}``.
+             launches, and the transfer phase's results; the card's name and
+             power limit; and a last line ``{"ok": true, "device": {...}}``.
 
 The script needs CUDA and the checkout's ``src/``; without either it exits
 non-zero before printing any result.  It imports nothing of JAX.
@@ -55,9 +60,10 @@ ARTIFACT_DIR = ROOT / "build" / "chip_smoke"
 WELL_FACTOR = 1.1       # paper §4.1: within 10 % of the best
 TUNE_BUDGET = 25
 REPLAY_SEEDS = 100
-NOT_PORTED = (
-    ("flash_attention", "src/repro/kernels/attention/kernel.py:105"),
-)
+NOT_PORTED = ()                # every TPU kernel of the JAX package is ported
+# each target's sources are every other port: for conv2d these are the
+# SOURCES of the JAX package's transfer benchmark (benchmarks/bench_transfer.py)
+TRANSFER_TARGETS = (("conv2d", "4096"), ("attention", "default"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,13 +81,24 @@ class Port:
     train: str               # registry input the model is trained on
     default: tuple           # the wrapper's defaults, as a configuration
     library: Optional[str]   # one PyTorch call computing the same function
-    work: Callable           # inp -> (bytes, fp32 operations, rsqrt)
+    work: Callable           # inp -> (bytes, fp32 operations, rsqrt or exp)
     input_space: bool = False      # make_space(inp): the GEMM's pruning
     plain_kw: Optional[Callable] = None  # cfg -> plain version's kwargs
+    wrapper: str = ""        # the wrapper's name, if not the kernel's
 
     @property
     def tune(self) -> str:
         return self.sweeps[0]
+
+    @property
+    def wrapper_name(self) -> str:
+        return self.wrapper or self.name
+
+
+def _attention_pairs(inp) -> float:
+    """(query, key) pairs the function needs: S(S+1)/2 a head when causal."""
+    per_head = inp.seq * (inp.seq + 1) / 2 if inp.causal else inp.seq ** 2
+    return float(inp.batch * inp.heads * per_head)
 
 
 def _gemm_kw(cfg):
@@ -89,7 +106,7 @@ def _gemm_kw(cfg):
                 block_k=cfg["BLOCK_K"], loop_order=cfg["LOOP_ORDER"])
 
 
-# Checks take each kernel's smallest and largest tiles; those of the four
+# Checks take each kernel's smallest and largest tiles; those of the
 # kernels after the GEMM also take every value of every parameter that
 # changes the code path at least once.
 PORTS = (
@@ -141,6 +158,17 @@ PORTS = (
          sweeps=("16k", "131k"), train="131k", default=(256, 256, 1, 0),
          library=None,
          work=lambda i: (32.0 * i.n, 18.0 * i.n * i.n, float(i.n * i.n))),
+    Port("attention", "src/repro/kernels/attention/kernel.py:105", 2e-3,
+         checks=((128, 128, 0, 1), (1024, 1024, 1, 2), (256, 512, 1, 1),
+                 (512, 256, 0, 2)),
+         ragged=("AttentionInput", (2, 3, 1000, 64)),
+         sweeps=("default",), train="default", default=(256, 256, 1, 1),
+         library="F.scaled_dot_product_attention(q, k, v, is_causal=True), "
+                 "fp32",
+         work=lambda i: (16.0 * i.batch * i.heads * i.seq * i.head_dim,
+                         4.0 * i.head_dim * _attention_pairs(i),
+                         _attention_pairs(i)),
+         wrapper="flash_attention"),
 )
 
 
@@ -184,7 +212,12 @@ def _module(port: Port, part: str):
 
 def _wrappers():
     """The wrapper of every ported kernel (each carries ``launches``)."""
-    return {p.name: getattr(_module(p, "kernel"), p.name) for p in PORTS}
+    return {p.name: getattr(_module(p, "kernel"), p.wrapper_name)
+            for p in PORTS}
+
+
+def _plain(port: Port):
+    return getattr(_module(port, "kernel"), f"{port.wrapper_name}_plain")
 
 
 def _config(bench, values) -> Dict:
@@ -217,7 +250,7 @@ def phase_check(port: Port, bench, device):
     import numpy as np
     import torch
 
-    plain = getattr(_module(port, "kernel"), f"{port.name}_plain")
+    plain = _plain(port)
     cls, fields = port.ragged
     inputs = dict(bench.inputs)
     inputs["ragged"] = getattr(_module(port, "space"), cls)(*fields)
@@ -265,6 +298,14 @@ def phase_sweep(bench, space, inp, hw, device):
         "best_config": space[best], "best_ms": rec.runtimes[best] * 1e3,
         "worst_config": space[worst], "worst_ms": rec.runtimes[worst] * 1e3,
         "within_well_factor": int(rec.well_performing_mask(WELL_FACTOR).sum()),
+        # each parameter value's best configuration, in ms (None: no
+        # configuration of the space takes the value)
+        "best_ms_by_value": {
+            p.name: {str(v): min((rt * 1e3 for c, rt in zip(space,
+                                                           rec.runtimes)
+                                  if c[p.name] == v), default=None)
+                     for v in p.values}
+            for p in space.parameters},
     }
     log(f"[sweep] {bench.name} {inp.tag}: {summary['configs']} configs in "
         f"{summary['host_s']:.1f} s; best {space[best]} "
@@ -349,6 +390,153 @@ def phase_replay(rec, model, hw):
     return out
 
 
+def phase_transfer(target, sources, models, records, hw, device):
+    """Cross-space transfer on the card for one held-out target space.
+
+    The JAX package runs this path inside its fleet
+    (``repro/fleet/tuner.py``, ``_load_transfer``), which the port does not
+    have yet; so it goes through the store, the searcher and the session
+    directly, step for step as the fleet takes them:
+
+    1. a ``ConfigStore`` holds the TP→PC model phase 5 trained live for each
+       source kernel, under (kernel, its space, its train input, this card);
+    2. the target's space is signed (``SpaceSignature.from_space`` with the
+       counters of one workload evaluation), and the store answers with the
+       similarity-weighted committee of every compatible source
+       (``load_transfer_ensemble``); its ``ensemble_runtime_scores``,
+       argsorted, are the order of a ``TransferredWarmStart``;
+    3. trials to within 1.1x of the best are replayed over 100 seeds on the
+       target's sweep record, transferred against cold (random);
+    4. one live ``TuningSession.tune`` on the card walks the transferred
+       order; its launch counts are zeroed just before and read just after.
+
+    Returns the phase's summary; raises if the transfer tier does not engage
+    or the target's kernel never launches."""
+    import numpy as np
+
+    from repro_torch.core.evaluate import DeviceKernelEvaluator
+    from repro_torch.core.searcher import TransferredWarmStart, make_searcher
+    from repro_torch.core.tuner import (ensemble_runtime_scores,
+                                        run_search_experiment)
+    from repro_torch.kernels.registry import BENCHMARKS
+    from repro_torch.tuning import ConfigStore, SpaceSignature, TuningSession
+
+    kernel, bucket = target
+    by_name = {p.name: p for p in PORTS}
+    store = ConfigStore()
+    for src in sources:
+        model = models[src]
+        store.save_model(model.space.name, by_name[src].train, hw.name, model,
+                         model.space, kind="kernel")
+    bench = BENCHMARKS[kernel]
+    inp = bench.inputs[bucket]
+    rec = records[kernel][bucket]
+    space = rec.space
+    sig = SpaceSignature.from_space(
+        space, kind="kernel", counters=sorted(bench.workload_fn(space[0],
+                                                                inp)))
+    if store.nearest_model_key(space.name, bucket, hw.name,
+                               kind="kernel") is not None:
+        raise AssertionError(f"{kernel} is not held out of the store")
+    ensemble, top_key, top_sim = store.load_transfer_ensemble(
+        sig, bucket, hw.name, bind_space=space)
+    if ensemble is None:
+        raise AssertionError(f"no compatible model for {kernel}/{bucket}")
+    committee = [[m.source_key, w] for m, w in ensemble.members]
+    order = [int(i) for i in np.argsort(
+        ensemble_runtime_scores(ensemble, space, hw), kind="stable")]
+    log(f"[transfer] {kernel}/{bucket}: committee of {len(committee)}: "
+        + ", ".join(f"{k} ({w:.3f})" for k, w in committee)
+        + f"; top {top_key}, similarity {top_sim:.4f}")
+
+    well = rec.well_performing_mask(WELL_FACTOR)
+    replay = {}
+    for name, kw in (("transferred", {"order": order}), ("cold", {})):
+        searcher = "transfer_warm_start" if kw else "random"
+        stats = run_search_experiment(
+            lambda seed, searcher=searcher, kw=kw: make_searcher(
+                searcher, space, seed=seed, **kw),
+            rec, repeats=REPLAY_SEEDS, well_factor=WELL_FACTOR)
+        replay[name] = {"searcher": searcher,
+                        "median_trials_to_well": stats.median_steps,
+                        "mean_trials_to_well": stats.mean_steps,
+                        "found_rate": stats.found_rate}
+        log(f"[transfer] {kernel}/{bucket} replay {name} ({searcher}): "
+            f"{stats.summary()} over {REPLAY_SEEDS} seeds")
+    head_rank = int(np.flatnonzero(well[order])[0]) + 1
+    head = [[space[i], rec.runtimes[i] / rec.best_runtime] for i in order[:5]]
+    log(f"[transfer] {kernel}/{bucket}: first configuration within "
+        f"{WELL_FACTOR}x at rank {head_rank} of the transferred order; its "
+        f"head, as runtime / best: "
+        + "; ".join(f"{c} {r:.3f}" for c, r in head))
+
+    session = TuningSession(space, lambda c: bench.workload_fn(c, inp), hw=hw)
+    ev = DeviceKernelEvaluator(space, bench, inp, hw=hw, device=device)
+    live = TransferredWarmStart(space, order=order, seed=0)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    result = session.tune(budget=TUNE_BUDGET, searcher=live, evaluator=ev)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if launches[kernel] <= 0:
+        raise AssertionError(f"{kernel} never launched on the transfer "
+                             f"path: {launches}")
+    steps = next((i for i, (idx, _) in enumerate(ev.history(), 1)
+                  if well[idx]), None)
+    log(f"[transfer] {kernel}/{bucket} live: {result.steps} tests in "
+        f"{ev.elapsed:.3f} s of host time, prior trusted: {live.trusted}; "
+        f"best {result.best_config} {result.best_runtime * 1e3:.4f} ms "
+        f"(sweep best {rec.best_runtime * 1e3:.4f} ms); first within "
+        f"{WELL_FACTOR}x at step "
+        f"{steps if steps is not None else f'> {TUNE_BUDGET} (not reached)'}"
+        f"; launches {launches}")
+    return {
+        "target": f"{kernel}/{bucket}", "sources": list(sources),
+        "committee": committee, "top_key": top_key,
+        "top_similarity": top_sim,
+        "first_well_rank_in_order": head_rank, "order_head": head,
+        "replay": replay,
+        "live": {"tests": result.steps, "host_s": ev.elapsed,
+                 "trusted": live.trusted, "steps_to_well": steps,
+                 "tuned_config": result.best_config,
+                 "tuned_ms": result.best_runtime * 1e3,
+                 "sweep_best_ms": rec.best_runtime * 1e3,
+                 "launches": launches[kernel]},
+    }
+
+
+def phase_exact_hit(target, models, hw):
+    """With the target's own model in the store, the nearest-model lookup
+    answers with its exact key and the transfer tier is never consulted
+    (the fleet consults it only when every exact tier misses)."""
+    from repro_torch.tuning import ConfigStore, store_key
+
+    kernel, bucket = target
+    train = {p.name: p.train for p in PORTS}
+    store = ConfigStore()
+    for name, model in models.items():
+        store.save_model(model.space.name, train[name], hw.name, model,
+                         model.space, kind="kernel")
+    consulted = []
+
+    def transfer_candidates(*args, **kwargs):
+        consulted.append(args)
+        return []
+
+    store.transfer_candidates = transfer_candidates
+    space = models[kernel].space
+    _, key = store.load_nearest_model(space.name, bucket, hw.name,
+                                      bind_space=space, kind="kernel")
+    want = store_key(space.name, bucket, hw.name, kind="kernel")
+    log(f"[transfer] {kernel}/{bucket} exact hit: nearest {key}; transfer "
+        f"tier consulted {len(consulted)} times")
+    if key != want or consulted:
+        raise AssertionError(f"exact hit failed: {key} (want {want}), "
+                             f"transfer consulted {len(consulted)} times")
+    return {"target": f"{kernel}/{bucket}", "nearest_key": key,
+            "transfer_consulted": len(consulted)}
+
+
 def bound(port: Port, inp, hw):
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its operations over the
@@ -356,7 +544,7 @@ def bound(port: Port, inp, hw):
     nbytes, fp32, sfu = port.work(inp)
     times = {"bytes (dram_bw)": nbytes / hw.dram_bw * 1e3,
              "fp32 (fp32_flops)": fp32 / hw.fp32_flops * 1e3,
-             "rsqrt (sfu_ops)": sfu / hw.sfu_ops * 1e3}
+             "rsqrt or exp (sfu_ops)": sfu / hw.sfu_ops * 1e3}
     unit = max(times, key=times.get)
     return {"bound_ms": times[unit],
             "bound_by": "bytes" if unit.startswith("bytes") else "operations",
@@ -372,7 +560,23 @@ def _library(port: Port):
         "transpose": lambda x: x.t().contiguous(),
         "conv2d": lambda img, flt: F.conv2d(img[None, None], flt[None, None],
                                             padding=flt.shape[0] // 2),
+        "attention": lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True),
     }.get(port.name)
+
+
+def _sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs
+    (a private PyTorch call; "unknown" where it is missing)."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, None, 0.0, True)).name
+    except Exception as exc:      # noqa: BLE001 - informational only
+        return f"unknown ({type(exc).__name__})"
 
 
 def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
@@ -383,7 +587,7 @@ def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
     args = bench.make_args(inp, np.random.default_rng(0), device)
     best = rec.space[int(rec.runtimes.argmin())]
     default = _config(bench, port.default)
-    plain = getattr(_module(port, "kernel"), f"{port.name}_plain")
+    plain = _plain(port)
     kw = port.plain_kw(best) if port.plain_kw else {}
     run = bench.run
     ms_best = time_ms(lambda: run(best, *args), 20, flush)
@@ -400,13 +604,16 @@ def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
         "library_call": port.library or "none: no single PyTorch call "
                                         "computes this function",
     }
+    if port.name == "attention":
+        out["library_backend"] = _sdpa_backend(*args)
     out.update(bound(port, inp, hw))
     return out
 
 
 def run_port(port: Port, hw, device):
     """Phases 3-6 for one kernel; returns the head and the rest of its
-    report entry (the times go between them) and its measured records."""
+    report entry (the times go between them), its measured records and the
+    model its main path trained."""
     import torch
 
     from repro_torch.kernels.registry import BENCHMARKS
@@ -444,7 +651,7 @@ def run_port(port: Port, hw, device):
     rest = {"main_path": main_path,
             "sweeps": {sweeps[t]["input"]: sweeps[t] for t in port.sweeps},
             "host_s": seconds}
-    return head, rest, records
+    return head, rest, records, model
 
 
 def main() -> int:
@@ -479,21 +686,33 @@ def main() -> int:
 
     # phases 3-6, kernel by kernel
     results = [run_port(port, hw, device) for port in PORTS]
+    models = {p.name: r[3] for p, r in zip(PORTS, results)}
+    records = {p.name: r[2] for p, r in zip(PORTS, results)}
 
-    # phase 7: report
+    # phase 7: transfer
+    t0 = time.perf_counter()
+    transfer = []
+    for target in TRANSFER_TARGETS:
+        sources = tuple(p.name for p in PORTS if p.name != target[0])
+        transfer.append(phase_transfer(target, sources, models, records, hw,
+                                       device))
+    exact = phase_exact_hit(TRANSFER_TARGETS[0], models, hw)
+    log(f"[time] transfer {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
     entries = []
-    for port, (head, rest, records) in zip(PORTS, results):
+    for port, (head, rest, port_records, _) in zip(PORTS, results):
         bench = BENCHMARKS[port.name]
         times = kernel_times(port, bench, bench.inputs[port.tune],
-                             records[port.tune], hw, device, flush)
+                             port_records[port.tune], hw, device, flush)
         entry = {**head, **times, **rest}
         for tag in port.sweeps[1:]:
             entry["at_" + bench.inputs[tag].tag] = kernel_times(
-                port, bench, bench.inputs[tag], records[tag], hw, device,
-                flush)
+                port, bench, bench.inputs[tag], port_records[tag], hw,
+                device, flush)
         entries.append(entry)
         library = times["library_ms"]
         log(f"[report] {port.name} {times['shape']}: best "
@@ -504,7 +723,8 @@ def main() -> int:
             f"{times['bound_ms']:.4f} ms ({times['bound_unit']})")
     report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}
-                             for n, r in NOT_PORTED]}
+                             for n, r in NOT_PORTED],
+              "transfer": transfer, "exact_hit": exact}
     log(f"[time] report {time.perf_counter() - t0:.1f} s")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -56,6 +56,13 @@ def _dicts_to_matrix(dicts: Sequence[Dict[str, float]],
 
 class TPPCModel:
     """Interface: predict PC_ops for a configuration / a whole space."""
+
+    # structural space signature of the space the model was trained on
+    # (``repro_torch.tuning.signature.SpaceSignature``); bound by the
+    # serializer on load and by training call sites that know it.  None
+    # on models that predate signatures — the serializer recomputes it
+    # from the artifact's recorded parameters.
+    signature = None
 
     def predict(self, cfg: Dict) -> Dict[str, float]:
         raise NotImplementedError
@@ -554,6 +561,176 @@ class ExactCounterModel(TPPCModel):
             [obj._index.get(tuple(sorted(space[i].items())), -1)
              for i in range(len(space))], dtype=np.int64)
         return obj
+
+
+# =============================================================================
+# Cross-space transfer: rebind a trained model onto a DIFFERENT space
+# =============================================================================
+class _ConfigList:
+    """Minimal space-shaped view over a list of config dicts.
+
+    The concrete models' batched ``predict_matrix(space)`` paths only
+    touch ``space.configs`` / ``space[i]`` / ``len(space)`` when the
+    space is not their own — this shim lets ``TransferredModel`` reuse
+    those batched paths on remapped configs without materializing a
+    cross-product ``TuningSpace``.
+    """
+
+    def __init__(self, configs: Sequence[Dict]):
+        self.configs = list(configs)
+
+    def __len__(self) -> int:
+        return len(self.configs)
+
+    def __getitem__(self, i: int) -> Dict:
+        return self.configs[i]
+
+
+class TransferredModel(TPPCModel):
+    """A trained TP→PC model rebound onto a space it was never fit on.
+
+    The transfer mechanism of the cross-space warm start (paper §4.4/§4.5
+    portability, extended across kernels per arXiv 2102.05299): a target
+    config is translated into the source model's own space — each source
+    parameter reads the target parameter its hashed slot mapped to
+    (``param_map``: source parameter index → target parameter index),
+    the raw value snapped to the nearest *declared* source value by
+    feature code; unmapped source parameters pin to their median declared
+    value — and predictions are restricted to the **shared-counter
+    intersection**: only counters both spaces name are reported, so the
+    downstream cost-model pricing never consumes a counter the target
+    workload would not emit.
+
+    The rebound model is a read-time construct (built by
+    ``repro_torch.tuning.serialize.rebind_model_dict``); it is never
+    re-serialized — a transferred job that completes trains and publishes
+    a native model for its own key, which then outranks the transfer tier.
+    """
+
+    def __init__(self, source: TPPCModel, target_space: TuningSpace,
+                 param_map: Dict[int, int],
+                 counters: Optional[Sequence[str]] = None,
+                 similarity: float = 0.0,
+                 source_key: Optional[str] = None):
+        self.source = source
+        self.space = target_space
+        self.source_space = source.space
+        self.param_map = dict(param_map)
+        src_names = tuple(source.counter_names)
+        if counters is None:
+            shared = src_names
+        else:
+            want = set(counters)
+            shared = tuple(n for n in src_names if n in want)
+        if not shared:      # nothing both spaces name: nothing to predict
+            raise ValueError(
+                "transfer has an empty shared-counter intersection: "
+                f"source predicts {list(src_names)}, target names "
+                f"{sorted(want)}")
+        self._counter_names = shared
+        self.similarity = float(similarity)
+        self.source_key = source_key
+        # per-source-parameter translation plan, built once
+        self._plan: List[Tuple[Any, ...]] = []
+        for i, p in enumerate(self.source_space.parameters):
+            j = self.param_map.get(i)
+            if j is None or j >= len(target_space.parameters):
+                # unmapped slot: pin to the median declared value
+                self._plan.append(("pin", p.name,
+                                   p.values[len(p.values) // 2]))
+                continue
+            tp = target_space.parameters[j]
+            codes = np.asarray([p.encode(v) for v in p.values],
+                               dtype=np.float64)
+            self._plan.append(("map", p.name, p, tp, codes))
+
+    @property
+    def counter_names(self) -> Tuple[str, ...]:
+        return self._counter_names
+
+    @staticmethod
+    def _snap(p, tp, codes: np.ndarray, value):
+        """Nearest declared source value for a target value: exact raw
+        match when the value is in the source list, else nearest by
+        feature code (the numeric shadow both models consume)."""
+        try:
+            if value in p.values:
+                return value
+        except TypeError:
+            pass
+        try:
+            code = float(tp.encode(value))
+        except (TypeError, ValueError):
+            return p.values[len(p.values) // 2]
+        return p.values[int(np.argmin(np.abs(codes - code)))]
+
+    def translate(self, cfg: Dict) -> Dict:
+        """Target-space config → the source-space config the wrapped
+        model actually predicts for."""
+        out: Dict = {}
+        for step in self._plan:
+            if step[0] == "pin":
+                out[step[1]] = step[2]
+            else:
+                _, name, p, tp, codes = step
+                out[name] = self._snap(p, tp, codes, cfg[tp.name])
+        return out
+
+    def predict(self, cfg: Dict) -> Dict[str, float]:
+        pred = self.source.predict(self.translate(cfg))
+        return {n: float(pred.get(n, 0.0)) for n in self._counter_names}
+
+    def predict_matrix(self, space: Optional[TuningSpace] = None) -> np.ndarray:
+        space = space if space is not None else self.space
+        view = _ConfigList([self.translate(c) for c in space.configs])
+        mat = np.asarray(self.source.predict_matrix(view),
+                         dtype=np.float64)
+        src_names = list(self.source.counter_names)
+        cols = [src_names.index(n) for n in self._counter_names]
+        return mat[:, cols]
+
+
+class TransferEnsemble:
+    """Similarity-weighted committee of rebound cross-space models.
+
+    A single borrowed model's absolute runtime predictions are noisy on
+    a space it was never fit on, but the parts of the ranking DIFFERENT
+    source spaces agree on are exactly the structure that generalizes —
+    a similarity-weighted blend of every compatible source's relative
+    ranking is far more reliable at the head (where the warm start
+    spends its trials) than the single most-similar source alone.
+
+    ``members`` is ``[(TransferredModel, similarity), ...]``, best
+    first; provenance (``source_key``/``similarity``) reports the top
+    member.  Scoring lives in
+    ``repro_torch.core.tuner.ensemble_runtime_scores`` — the committee itself
+    is a read-time construct like its members and is never serialized.
+    """
+
+    def __init__(self, members: Sequence[Tuple["TransferredModel", float]]):
+        if not members:
+            raise ValueError("TransferEnsemble needs at least one member")
+        self.members: List[Tuple["TransferredModel", float]] = \
+            [(m, float(s)) for m, s in members]
+
+    @property
+    def top(self) -> "TransferredModel":
+        return self.members[0][0]
+
+    @property
+    def source_key(self) -> Optional[str]:
+        return self.top.source_key
+
+    @property
+    def similarity(self) -> float:
+        return self.members[0][1]
+
+    @property
+    def counter_names(self) -> Tuple[str, ...]:
+        return self.top.counter_names
+
+    def __len__(self) -> int:
+        return len(self.members)
 
 
 def deliberate_training_sample(

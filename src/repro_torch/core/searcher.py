@@ -275,6 +275,55 @@ class WarmStartSearcher(Searcher):
         yield [Candidate(int(i)) for i in list(self.order) + tail]
 
 
+@register_searcher("transfer_warm_start")
+class TransferredWarmStart(Searcher):
+    """``WarmStartSearcher`` with a distrust-and-verify first wave, for
+    orders that come from a model trained on a DIFFERENT tuning space.
+
+    A transferred prior is a guess: the source model never saw this
+    space, so its ranking may be anywhere between spot-on and misleading.
+    The first wave hedges by spending ``verify`` trials on the prior's
+    head AND ``verify`` random probes; if the prior's head beat the
+    probes, the walk trusts the transferred order (probed indices
+    excluded), otherwise it falls back to the seed-shuffled random walk a
+    cold job would have run — so a bad transfer costs at most one wave,
+    while a good one keeps the full warm-start benefit.
+    """
+
+    def __init__(self, space: TuningSpace,
+                 order: Optional[Sequence[int]] = None,
+                 seed: int = 0, verify: int = 4):
+        super().__init__(space, seed)
+        self.order = [int(i) for i in (order if order is not None else [])]
+        self.verify = max(1, int(verify))
+        self.trusted: Optional[bool] = None   # set after the first wave
+
+    def _plan(self):
+        perm = [int(i) for i in self.rng.permutation(len(self.space))]
+        if not self.order:          # nothing transferred: plain random walk
+            yield [Candidate(i) for i in perm]
+            return
+        k = min(self.verify, len(self.order))
+        head = self.order[:k]
+        head_set = set(head)
+        probes = [i for i in perm if i not in head_set][:k]
+        wave = head + probes
+        obs = yield [Candidate(i) for i in wave]
+        by_index = {o.index: o.runtime for o in obs}
+        best_head = min(by_index.get(i, float("inf")) for i in head)
+        best_probe = min((by_index.get(i, float("inf")) for i in probes),
+                         default=float("inf"))
+        self.trusted = best_head <= best_probe
+        seen = set(wave)
+        if self.trusted:
+            rest = [i for i in self.order if i not in seen]
+            seen.update(rest)
+            tail = [i for i in perm if i not in seen]
+            yield [Candidate(i) for i in rest + tail]
+        else:
+            yield [Candidate(i) for i in perm if i not in seen]
+
+
 @register_searcher("profile")
 class ProfileBasedSearcher(Searcher):
     """Algorithm 1: profile, detect bottlenecks, react, score, biased step.

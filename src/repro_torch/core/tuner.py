@@ -56,6 +56,26 @@ def predicted_runtimes(model: TPPCModel, space: TuningSpace,
     return pred
 
 
+def ensemble_runtime_scores(ensemble, space: TuningSpace,
+                            hw: HardwareSpec) -> np.ndarray:
+    """Whole-space RELATIVE runtime scores for a ``TransferEnsemble``.
+
+    Each member's predictions are priced through the cost model like any
+    warm start, normalized by its own predicted best (sources live on
+    different absolute runtime scales), and blended as a
+    similarity-weighted geometric mean.  The result is dimensionless
+    (1.0 = a member-consensus best config); only its ARGSORT is
+    meaningful — which is all the transferred warm start consumes.
+    """
+    log_sum = np.zeros(len(space), dtype=np.float64)
+    w_sum = 0.0
+    for model, weight in ensemble.members:
+        r = np.maximum(predicted_runtimes(model, space, hw), 1e-300)
+        log_sum += weight * np.log(r / r.min())
+        w_sum += weight
+    return np.exp(log_sum / max(w_sum, 1e-300))
+
+
 # =============================================================================
 # Training phase
 # =============================================================================

@@ -164,6 +164,34 @@ class TuningSession:
             self.model = model_from_dict(json.load(f), space=self.space)
         return self.model
 
+    def save_model_to_store(self, store, bucket: str,
+                            hardware: Optional[str] = None,
+                            kind: Optional[str] = None) -> None:
+        """Publish the trained model into a ``ConfigStore`` under
+        ``(kind, space name, bucket, hardware)`` — the persistent analog
+        of ``save_model`` for online/serving tuners.  ``hardware``
+        defaults to the session's target hardware name; ``kind`` is the
+        problem-kind namespace (default: inferred from the space name)."""
+        if self.model is None:
+            raise ValueError("no trained model to save; call train() first")
+        hw = hardware if hardware is not None else (
+            self.hw.name if self.hw is not None else "any")
+        store.save_model(self.space.name, bucket, hw, self.model, self.space,
+                         kind=kind)
+
+    def load_model_from_store(self, store, bucket: str,
+                              hardware: Optional[str] = None,
+                              kind: Optional[str] = None
+                              ) -> Optional[TPPCModel]:
+        """Bind a stored model artifact to this session (None on miss)."""
+        hw = hardware if hardware is not None else (
+            self.hw.name if self.hw is not None else "any")
+        model = store.load_model(self.space.name, bucket, hw,
+                                 bind_space=self.space, kind=kind)
+        if model is not None:
+            self.model = model
+        return model
+
     def prediction_matrix(self):
         """(counter_names, n_configs × n_counters) predictions of the
         session's model over its space — the array the profile searchers

@@ -6,8 +6,9 @@ This file imports no JAX, so that it runs where the card is and JAX is not:
 test skips, decided at run time by the ``cuda`` fixture.
 
 Tolerances, relative to max |plain|, are those of the JAX package's kernel
-tests: matmul 2e-4, transpose exact, conv2d 1e-3, coulomb 5e-4, nbody 1e-3;
-the sums run in another order (and rsqrt is the hardware's approximation).
+tests: matmul 2e-4, transpose exact, conv2d 1e-3, coulomb 5e-4, nbody 1e-3,
+attention 2e-3; the sums run in another order (and rsqrt and exp are the
+hardware's approximations).
 """
 import importlib
 
@@ -16,6 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core.evaluate import DeviceKernelEvaluator
+from repro_torch.kernels.attention import kernel as A
+from repro_torch.kernels.attention.space import AttentionInput
 from repro_torch.kernels.conv2d.space import ConvInput
 from repro_torch.kernels.coulomb.space import CoulombInput
 from repro_torch.kernels.matmul import kernel as K
@@ -181,5 +184,94 @@ def test_card_evaluator_times_each_paper_kernel(cuda, kernel):
     bench = BENCHMARKS[kernel]
     inp = PAPER[kernel][1][1]
     ev = DeviceKernelEvaluator(bench.make_space(), bench, inp, reps=3)
+    cs = ev.profile(len(ev.space) - 1)
+    assert 0 < cs.runtime < 1.0
+
+
+# Flash attention: the registry input, a ragged one at each head dimension,
+# and one query; configurations with the smallest and largest tiles and each
+# value of KEEP_P and Q_PREFETCH, as (BLOCK_Q, BLOCK_K, KEEP_P, Q_PREFETCH).
+ATTENTION_TOL = 2e-3
+ATTENTION_SHAPES = [(4, 16, 4096, 128), (2, 3, 1000, 64), (1, 2, 200, 128),
+                    (1, 1, 1, 64)]
+ATTENTION_CONFIGS = [(128, 128, 0, 1), (1024, 1024, 1, 2), (256, 512, 1, 1),
+                     (512, 256, 0, 2), (64, 64, 1, 2)]
+
+
+def _attention_args(shape, device):
+    return BENCHMARKS["attention"].make_args(AttentionInput(*shape),
+                                             np.random.default_rng(0), device)
+
+
+def _attention_kw(cfg):
+    bq, bk, keep_p, prefetch = cfg
+    return dict(block_q=bq, block_k=bk, keep_p=keep_p, q_prefetch=prefetch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_matches_its_plain_version(cuda, shape, causal):
+    q, k, v = _attention_args(shape, cuda)
+    ref = A.flash_attention_plain(q, k, v, causal=causal)
+    for cfg in ATTENTION_CONFIGS:
+        before = A.flash_attention.launches
+        out = A.flash_attention(q, k, v, causal=causal, **_attention_kw(cfg))
+        assert A.flash_attention.launches == before + 1
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(out.isfinite().all())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err < ATTENTION_TOL, (cfg, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ATTENTION_CONFIGS[:2])
+def test_attention_reads_nothing_past_the_last_row(cuda, cfg):
+    """q, k and v end where a NaN-filled buffer goes on: a row read past S
+    of the last head would poison the output."""
+    shape = (1, 2, 1000, 64)
+    n = int(np.prod(shape))
+    tensors = []
+    for t in _attention_args(shape, cuda):
+        buf = torch.full((n + 64 * 64,), float("nan"), device=cuda)
+        buf[:n] = t.reshape(-1)
+        tensors.append(buf[:n].view(shape))
+    out = A.flash_attention(*tensors, **_attention_kw(cfg))
+    ref = A.flash_attention_plain(*tensors)
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all())
+    assert float((out - ref).abs().max() / ref.abs().max()) < ATTENTION_TOL
+
+
+@pytest.mark.gpu
+def test_attention_never_reaches_the_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(A, "flash_attention_plain", refuse)
+    A.flash_attention(*_attention_args((1, 2, 128, 64), cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_a_refused_attention_launch_raises(cuda, monkeypatch):
+    entry = A._entry()
+    assert entry(None, None, None, None, 1, 64, 64, 96, 64, 1, 1, 1, 1.0,
+                 None) != 0
+    assert entry(None, None, None, None, 1, 64, 32, 64, 64, 1, 1, 1, 1.0,
+                 None) != 0
+    monkeypatch.setattr(A, "_entry", lambda: (lambda *args: 1))
+    before = A.flash_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        A.flash_attention(*_attention_args((1, 1, 64, 64), cuda))
+    assert A.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_card_evaluator_times_attention(cuda):
+    bench = BENCHMARKS["attention"]
+    ev = DeviceKernelEvaluator(bench.make_space(), bench,
+                               AttentionInput(1, 2, 512, 64), reps=3)
     cs = ev.profile(len(ev.space) - 1)
     assert 0 < cs.runtime < 1.0

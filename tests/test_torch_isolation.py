@@ -47,9 +47,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     names = json.loads(out.stdout.strip().splitlines()[-1])
     expected = {"repro_torch.core.searcher", "repro_torch.core.evaluate",
                 "repro_torch.tuning.session", "repro_torch.tuning.serialize",
+                "repro_torch.tuning.signature", "repro_torch.tuning.store",
+                "repro_torch.tuning.problem",
                 "repro_torch.kernels.registry"} | {
         f"repro_torch.kernels.{k}.{part}"
-        for k in ("matmul", "transpose", "conv2d", "coulomb", "nbody")
+        for k in ("matmul", "transpose", "conv2d", "coulomb", "nbody",
+                  "attention")
         for part in ("kernel", "ops", "ref", "space")}
     assert expected <= set(names)
 

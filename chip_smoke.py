@@ -13,12 +13,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. device  — the card's name, count and power limit; its hardware spec.
 2. build   — every CUDA source in ``src/repro_torch/csrc``, one ``nvcc``
              each, all started together, with nvcc's register /
-             shared-memory / spill report.
+             shared-memory / spill report; the tensor-core (HMMA)
+             instructions of each library counted with ``cuobjdump -sass``,
+             none in matmul or attention failing the phase; then the TF32
+             rate mma.sync sustains on the card (``csrc/mma_probe.cu``, a
+             probe, not a port), the practical ceiling of both kernels.
 Then, kernel by kernel (the table ``PORTS``):
 3. check   — the kernel against its plain PyTorch version on the card, at
-             every registry input plus a ragged one, at the smallest and
-             largest tiles and each value of every parameter that changes
-             the code path (TF32 off); transpose must be exact.
+             every registry input plus a ragged one (and the extra ones),
+             at the smallest and largest tiles and each value of every
+             parameter that changes the code path (TF32 off); transpose
+             must be exact.  The two kernels on the tensor cores (3xTF32)
+             also meet their fp32 oracle within the same tolerance and give
+             the same bits in two launches; the GEMM's line shows one TF32
+             pass's error beside its own.
 4. sweep   — ``DeviceKernelEvaluator`` over the whole space at the tune
              input (and at the GEMM's 16x4096x4096 and nbody's 131072
              too): the measured ground truth.
@@ -81,10 +89,17 @@ class Port:
     train: str               # registry input the model is trained on
     default: tuple           # the wrapper's defaults, as a configuration
     library: Optional[str]   # one PyTorch call computing the same function
-    work: Callable           # inp -> (bytes, fp32 operations, rsqrt or exp)
+    # inp -> (bytes, fp32 operations, rsqrt or exp, the operations of its
+    # products that can run by 3xTF32 on the tensor cores)
+    work: Callable
     input_space: bool = False      # make_space(inp): the GEMM's pruning
     plain_kw: Optional[Callable] = None  # cfg -> plain version's kwargs
     wrapper: str = ""        # the wrapper's name, if not the kernel's
+    # more check inputs, as ragged; kernels on the tensor cores also meet
+    # their fp32 oracle (TF32 off) within tol, give the same bits in two
+    # launches, and must hold HMMA instructions in their SASS
+    extra: Tuple[Tuple[str, tuple], ...] = ()
+    tensor_cores: bool = False
 
     @property
     def tune(self) -> str:
@@ -108,7 +123,9 @@ def _gemm_kw(cfg):
 
 # Checks take each kernel's smallest and largest tiles; those of the
 # kernels after the GEMM also take every value of every parameter that
-# changes the code path at least once.
+# changes the code path at least once.  The GEMM's take, at 16x4096x4096,
+# BLOCK_K 128 and 1024 (many splits and few) and M = 16 at BLOCK_M 64; its
+# extra input has rows whose K and N are not multiples of 4 (4-byte copies).
 PORTS = (
     Port("matmul", "src/repro/kernels/matmul/kernel.py:82", 2e-4,
          checks=((64, 64, 128, "mnk", 1),      # smallest tile
@@ -119,15 +136,16 @@ PORTS = (
          sweeps=("2048", "16x4096"), train="16x4096",
          default=(128, 128, 128, "mnk", 1), library="torch.matmul(a, b)",
          work=lambda i: (4.0 * (i.m * i.k + i.k * i.n + i.m * i.n),
-                         2.0 * i.m * i.n * i.k, 0.0),
-         input_space=True, plain_kw=_gemm_kw),
+                         2.0 * i.m * i.n * i.k, 0.0, 2.0 * i.m * i.n * i.k),
+         input_space=True, plain_kw=_gemm_kw,
+         extra=(("GemmInput", (1001, 1003, 999)),), tensor_cores=True),
     Port("transpose", "src/repro/kernels/transpose/kernel.py:37", 0.0,
          checks=((8, 8, 0), (1024, 1024, 1), (16, 512, 1), (32, 256, 0),
                  (64, 128, 1), (128, 64, 0), (256, 32, 1), (512, 16, 0)),
          ragged=("TransposeInput", (1000, 1500)),
          sweeps=("8192",), train="8192", default=(256, 256, 1),
          library="x.t().contiguous()",
-         work=lambda i: (8.0 * i.m * i.n, 0.0, 0.0)),
+         work=lambda i: (8.0 * i.m * i.n, 0.0, 0.0, 0.0)),
     Port("conv2d", "src/repro/kernels/conv2d/kernel.py:78", 1e-3,
          checks=((8, 128, 0, 0, 1), (512, 1024, 1, 1, 4),
                  (16, 256, 1, 0, 2), (32, 512, 0, 1, 1),
@@ -137,7 +155,7 @@ PORTS = (
          sweeps=("4096",), train="4096", default=(128, 256, 1, 1, 1),
          library="F.conv2d(img, flt, padding=F // 2), cuDNN TF32 off",
          work=lambda i: (4.0 * (2 * i.h * i.w + i.f * i.f),
-                         2.0 * i.f * i.f * i.h * i.w, 0.0)),
+                         2.0 * i.f * i.f * i.h * i.w, 0.0, 0.0)),
     Port("coulomb", "src/repro/kernels/coulomb/kernel.py:84", 5e-4,
          checks=((1, 4, 64, 4, 0), (64, 8, 1024, 256, 1),
                  (2, 64, 1024, 16, 0), (4, 32, 128, 64, 1),
@@ -149,7 +167,7 @@ PORTS = (
          work=lambda i: (16.0 * i.n_atoms + 4.0 * i.grid_size**3,
                          6.0 * i.grid_size**3 * i.n_atoms
                          + 5.0 * i.grid_size**2 * i.n_atoms,
-                         float(i.grid_size**3 * i.n_atoms))),
+                         float(i.grid_size**3 * i.n_atoms), 0.0)),
     Port("nbody", "src/repro/kernels/nbody/kernel.py:72", 1e-3,
          checks=((8, 32, 1, 0), (1024, 2048, 4, 1), (16, 64, 2, 0),
                  (32, 128, 4, 1), (64, 256, 1, 0), (128, 512, 2, 1),
@@ -157,7 +175,8 @@ PORTS = (
          ragged=("NBodyInput", (10000,)),
          sweeps=("16k", "131k"), train="131k", default=(256, 256, 1, 0),
          library=None,
-         work=lambda i: (32.0 * i.n, 18.0 * i.n * i.n, float(i.n * i.n))),
+         work=lambda i: (32.0 * i.n, 18.0 * i.n * i.n, float(i.n * i.n),
+                         0.0)),
     Port("attention", "src/repro/kernels/attention/kernel.py:105", 2e-3,
          checks=((128, 128, 0, 1), (1024, 1024, 1, 2), (256, 512, 1, 1),
                  (512, 256, 0, 2)),
@@ -167,8 +186,10 @@ PORTS = (
                  "fp32",
          work=lambda i: (16.0 * i.batch * i.heads * i.seq * i.head_dim,
                          4.0 * i.head_dim * _attention_pairs(i),
-                         _attention_pairs(i)),
-         wrapper="flash_attention"),
+                         _attention_pairs(i),
+                         4.0 * i.head_dim * _attention_pairs(i)),
+         wrapper="flash_attention",
+         extra=(("AttentionInput", (1, 2, 777, 128)),), tensor_cores=True),
 )
 
 
@@ -243,21 +264,75 @@ def phase_build():
                                        "spill", "smem")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f} s")
+    # tensor-core products in each library's SASS (HMMA: mma.sync)
+    hmma = {src: common.count_sass(src, "HMMA") for src in sources}
+    log(f"[build] HMMA instructions by library: {hmma}")
+    for port in PORTS:
+        if port.tensor_cores and hmma[f"{port.name}.cu"] == 0:
+            raise AssertionError(f"{port.name}.cu holds no HMMA instruction: "
+                                 "its products do not run on the tensor cores")
+    return hmma
+
+
+def _rel_err(out, ref) -> Tuple[float, float]:
+    err = float((out - ref).abs().max())
+    return err, err / (float(ref.abs().max()) + 1e-30)
+
+
+def phase_probe(hw, device) -> Dict:
+    """The TF32 rate that mma.sync sustains on this card
+    (``csrc/mma_probe.cu``: 16 independent products in flight a warp, two
+    8-warp blocks an SM), against the data sheet's dense rate, which only
+    wgmma reaches; the median of 5 timed launches."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import common
+
+    fn = common.entry("mma_probe.cu", "repro_mma_tf32_probe",
+                      [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    blocks, iters = 2 * hw.sms, 4096
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=device)
+
+    def run():
+        rc = common.launch(fn, out.device, out.data_ptr(), blocks, iters)
+        if rc != 0:
+            raise RuntimeError(f"mma probe launch failed: CUDA error {rc}")
+
+    ms = time_ms(run, 5)
+    flops = blocks * 8 * iters * 16 * 2.0 * 16 * 8 * 8
+    rate = flops / (ms * 1e-3)
+    log(f"[probe] mma.sync m16n8k8 TF32: {rate / 1e12:.1f} TFLOP/s "
+        f"({rate / hw.tf32_flops:.3f} of the data sheet's "
+        f"{hw.tf32_flops / 1e12:.0f} dense); 3xTF32 through it "
+        f"{rate / 3e12:.1f} TFLOP/s")
+    return {"mma_sync_tf32_flops": rate, "ms": ms,
+            "share_of_tf32_flops": rate / hw.tf32_flops}
 
 
 def phase_check(port: Port, bench, device):
-    """Kernel against its plain version; returns (max_abs_err, max_rel)."""
+    """Kernel against its plain version and, on the tensor cores, against
+    its fp32 oracle (TF32 off) with two launches giving the same bits.
+    Returns (max_abs_err, max_rel) against the plain version and a dict of
+    the oracle errors (empty for the other kernels)."""
     import numpy as np
     import torch
 
     plain = _plain(port)
-    cls, fields = port.ragged
+    space_mod = _module(port, "space")
     inputs = dict(bench.inputs)
-    inputs["ragged"] = getattr(_module(port, "space"), cls)(*fields)
+    inputs["ragged"] = getattr(space_mod, port.ragged[0])(*port.ragged[1])
+    for n, (cls, fields) in enumerate(port.extra):
+        inputs[f"extra{n}"] = getattr(space_mod, cls)(*fields)
     worst_abs = worst_rel = 0.0
+    oracle = {"max_rel_err": 0.0, "by_input": {}}
     for tag, inp in inputs.items():
         args = bench.make_args(inp, np.random.default_rng(0), device)
         ref = None if port.plain_kw else plain(*args)
+        exact = bench.ref(*args) if port.tensor_cores else None
+        worst_oracle = 0.0
         for values in port.checks:
             cfg = _config(bench, values)
             out = bench.run(cfg, *args)
@@ -266,8 +341,7 @@ def phase_check(port: Port, bench, device):
             if out.shape != ref.shape or not bool(out.isfinite().all()):
                 raise AssertionError(f"{port.name} {inp.tag} {cfg}: bad "
                                      "output")
-            err = float((out - ref).abs().max())
-            rel = err / (float(ref.abs().max()) + 1e-30)
+            err, rel = _rel_err(out, ref)
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
             if port.tol == 0.0 and not torch.equal(out, ref):
                 raise AssertionError(f"{port.name} {inp.tag} {cfg}: not "
@@ -275,11 +349,37 @@ def phase_check(port: Port, bench, device):
             if rel > port.tol:
                 raise AssertionError(f"{port.name} {inp.tag} {cfg}: rel err "
                                      f"{rel:.3e} > {port.tol}")
-        log(f"[check] {port.name} {tag} ({inp.tag}): {len(port.checks)} "
-            f"configs {'exact' if port.tol == 0.0 else f'within {port.tol}'}"
-            f" against the plain version")
-        del args, ref
-    return worst_abs, worst_rel
+            if exact is not None:
+                rel_o = _rel_err(out, exact)[1]
+                worst_oracle = max(worst_oracle, rel_o)
+                if rel_o > port.tol:
+                    raise AssertionError(
+                        f"{port.name} {inp.tag} {cfg}: rel err {rel_o:.3e} "
+                        f"against the fp32 oracle > {port.tol}")
+                if not torch.equal(bench.run(cfg, *args), out):
+                    raise AssertionError(f"{port.name} {inp.tag} {cfg}: two "
+                                         "launches gave different bits")
+        line = (f"[check] {port.name} {tag} ({inp.tag}): {len(port.checks)} "
+                f"configs {'exact' if port.tol == 0.0 else f'within {port.tol}'}"
+                f" against the plain version")
+        if exact is not None:
+            entry = {"kernel_rel_err": worst_oracle}
+            line += (f"; against the fp32 oracle {worst_oracle:.3e}, the same "
+                     "bits in two launches")
+            if port.name == "matmul":
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    one_pass = _rel_err(torch.matmul(*args), exact)[1]
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                entry["one_pass_tf32_rel_err"] = one_pass
+                line += (f"; one TF32 pass (torch.matmul, allow_tf32) "
+                         f"{one_pass:.3e}")
+            oracle["by_input"][inp.tag] = entry
+            oracle["max_rel_err"] = max(oracle["max_rel_err"], worst_oracle)
+        log(line)
+        del args, ref, exact
+    return worst_abs, worst_rel, oracle if port.tensor_cores else {}
 
 
 def phase_sweep(bench, space, inp, hw, device):
@@ -540,12 +640,21 @@ def phase_exact_hit(target, models, hw):
 def bound(port: Port, inp, hw):
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its operations over the
-    peak rate of their unit (hwspec, data-sheet or derived)."""
-    nbytes, fp32, sfu = port.work(inp)
+    peak rate of their unit (hwspec, data-sheet or derived).  Products that
+    can run on the tensor cores take the faster of two routes to fp32
+    accuracy: the fp32 pipes, or three TF32 passes (3xTF32) at the dense
+    TF32 rate."""
+    nbytes, fp32, sfu, tensor = port.work(inp)
     times = {"bytes (dram_bw)": nbytes / hw.dram_bw * 1e3,
              "fp32 (fp32_flops)": fp32 / hw.fp32_flops * 1e3,
              "rsqrt or exp (sfu_ops)": sfu / hw.sfu_ops * 1e3}
-    unit = max(times, key=times.get)
+    routes = dict(times)
+    if tensor:
+        times["3xTF32 (tf32_flops)"] = 3.0 * tensor / hw.tf32_flops * 1e3
+        slower = max(("fp32 (fp32_flops)", "3xTF32 (tf32_flops)"),
+                     key=times.get)
+        routes = {k: v for k, v in times.items() if k != slower}
+    unit = max(routes, key=routes.get)
     return {"bound_ms": times[unit],
             "bound_by": "bytes" if unit.startswith("bytes") else "operations",
             "bound_unit": unit, "bound_terms_ms": times}
@@ -621,7 +730,7 @@ def run_port(port: Port, hw, device):
     bench = BENCHMARKS[port.name]
     seconds = {}
     t0 = time.perf_counter()
-    max_abs, max_rel = phase_check(port, bench, device)
+    max_abs, max_rel, oracle = phase_check(port, bench, device)
     seconds["check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     records, sweeps = {}, {}
@@ -648,6 +757,8 @@ def run_port(port: Port, hw, device):
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "tolerance": port.tol,
     }
+    if oracle:
+        head["fp32_oracle"] = oracle
     rest = {"main_path": main_path,
             "sweeps": {sweeps[t]["input"]: sweeps[t] for t in port.sweeps},
             "host_s": seconds}
@@ -681,8 +792,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
-    phase_build()
+    # phase 2: build, and the tensor cores' rate through mma.sync
+    hmma = phase_build()
+    probe = phase_probe(hw, device)
 
     # phases 3-6, kernel by kernel
     results = [run_port(port, hw, device) for port in PORTS]
@@ -724,7 +836,8 @@ def main() -> int:
     report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
-              "transfer": transfer, "exact_hit": exact}
+              "transfer": transfer, "exact_hit": exact,
+              "hmma_instructions": hmma, "mma_probe": probe}
     log(f"[time] report {time.perf_counter() - t0:.1f} s")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

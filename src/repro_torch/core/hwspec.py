@@ -3,7 +3,9 @@
 Sources:
 
 * [DS] NVIDIA H100 Tensor Core GPU data sheet: SM count, fp32 rate outside
-  the tensor cores, memory size and bandwidth, L2, NVLink, power.
+  the tensor cores, dense TF32 tensor-core rate (the data sheet's
+  "with sparsity" figures halved: 989 / 2 SXM, 756 / 2 PCIe), memory size
+  and bandwidth, L2, NVLink, power.
 * [WP] NVIDIA H100 Tensor Core GPU Architecture white paper (Hopper): per-SM
   function units (128 fp32 lanes, 64 int32 lanes, 16 SFU lanes), 128 bytes
   per clock of shared-memory bandwidth per SM, 227 KB of shared memory a
@@ -42,6 +44,8 @@ class HardwareSpec:
     launch_latency: float = 1.0e-6
     l2_bytes: Optional[float] = None   # not used by the cost model
     power_w: Optional[float] = None    # board power at full limit
+    # FLOP/s, dense TF32 on the tensor cores (not used by the cost model)
+    tf32_flops: Optional[float] = None
 
     @property
     def nvlink_card_bw(self) -> float:
@@ -68,6 +72,7 @@ H100_SXM = HardwareSpec(
     launch_latency=1.0e-6,
     l2_bytes=50e6,                           # [DS]
     power_w=700.0,                           # [DS]
+    tf32_flops=495e12,                       # [DS] dense
 )
 H100_PCIE = HardwareSpec(
     name="h100_pcie", generation="hopper",
@@ -85,6 +90,7 @@ H100_PCIE = HardwareSpec(
     launch_latency=1.0e-6,
     l2_bytes=50e6,                           # [DS]
     power_w=350.0,                           # [DS]
+    tf32_flops=378e12,                       # [DS] dense
 )
 
 SPECS: Dict[str, HardwareSpec] = {s.name: s for s in (H100_SXM, H100_PCIE)}

@@ -8,13 +8,15 @@ Replaces the Pallas TPU kernel ``flash_attention_single_head`` (body
 1/√D by default, the causal mask and keys past S at −1e30.
 
 The CUDA kernel is ``repro_torch/csrc/attention.cu``; its header says what
-bounds it (fp32 work on the S(S+1)/2 causal pairs) and how a block of 256
-threads walks its BLOCK_Q query rows, and the keys, in 64-row sub-tiles
-with an online softmax.  Every parameter of the space changes its code path:
-BLOCK_Q (grid and work a block), BLOCK_K (granularity of the causal skip,
-which works per 64-row query sub-tile),
-KEEP_P (p kept in shared memory or recomputed for the PV product) and
-Q_PREFETCH (one or two cp.async stages for K and V).
+bounds it (the tensor cores, on the S(S+1)/2 causal pairs) and how a block
+of 4 warps walks its BLOCK_Q query rows in 128-row sub-tiles, 32 rows a
+warp, and the keys in 32-row sub-tiles, both products fp32-accurate by
+3xTF32 (``csrc/tf32x3.cuh``) with an online softmax on the accumulator
+fragments.  Every parameter of the space changes its code path: BLOCK_Q
+(grid and work a block), BLOCK_K (granularity of the causal skip, which
+works per query sub-tile), KEEP_P (p kept in registers or computed again
+for the PV product) and Q_PREFETCH (one or two cp.async stages for K and
+V).
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises when the
 build or the launch fails; it takes ``flash_attention_plain`` only for
@@ -28,10 +30,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import tf32x3
 from repro_torch.kernels.common import entry, launch
 
 SOURCE = "attention.cu"
-SUB = 64                     # rows of a Q, K or V sub-tile in the kernel
+SUB = 64                     # BLOCK_Q and BLOCK_K are multiples of it
 HEAD_DIMS = (64, 128)        # compiled head dimensions
 MAX_BLOCK = 1024             # largest BLOCK_Q / BLOCK_K (the space's)
 MAX_Q_BLOCKS = 65535         # the grid's y extent
@@ -83,10 +86,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sm_scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, fp32: scores scaled, then
-    masked to −1e30, softmax, product with V; computed over chunks of the
-    B·H heads so that the (heads, S, S) scores stay within
-    ``SCORES_PER_CHUNK`` elements (256 MB)."""
+    """The kernel's function in plain PyTorch, with its arithmetic: both
+    products by 3xTF32 (``tf32x3``: operands split into TF32 big and small
+    parts, three products in fp32), scores scaled, then masked to −1e30,
+    softmax, product with V; computed over chunks of the B·H heads so that
+    the (heads, S, S) scores stay within ``SCORES_PER_CHUNK`` elements
+    (256 MB).  The kernel's online softmax splits p before it divides by
+    the row sum, this version after; both are fp32-accurate."""
     b, h, s, d = q.shape
     scale = 1.0 / (d ** 0.5) if sm_scale is None else float(sm_scale)
     qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
@@ -95,12 +101,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               if causal else None)
     step = max(1, SCORES_PER_CHUNK // max(s * s, 1))
     for h0 in range(0, b * h, step):
-        sc = torch.matmul(qf[h0:h0 + step], kf[h0:h0 + step].transpose(1, 2))
+        sc = tf32x3.product(tf32x3.split(qf[h0:h0 + step]),
+                            tf32x3.split(kf[h0:h0 + step].transpose(1, 2)))
         sc = sc * scale
         if masked is not None:
             sc = sc.masked_fill(masked, NEG_INF)
-        out[h0:h0 + step] = torch.matmul(torch.softmax(sc, dim=-1),
-                                         vf[h0:h0 + step])
+        out[h0:h0 + step] = tf32x3.product(
+            tf32x3.split(torch.softmax(sc, dim=-1)),
+            tf32x3.split(vf[h0:h0 + step]))
     return out.reshape(b, h, s, d)
 
 

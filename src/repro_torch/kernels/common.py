@@ -4,8 +4,8 @@ build.
 A CUDA source in ``repro_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  The library
 goes into ``build/repro_torch/`` at the checkout root, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is not.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is not.
 """
 from __future__ import annotations
 
@@ -61,11 +61,31 @@ def _nvcc() -> str:
     return str(path)
 
 
+def count_sass(source: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. ``HMMA``, a tensor-core
+    product) the built library of ``csrc/<source>`` holds, from
+    ``cuobjdump -sass``; raises if the tool fails."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(library_path(source))],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {library_path(source)} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    return sum(1 for line in proc.stdout.splitlines()
+               if f" {opcode}" in line or f"\t{opcode}" in line)
+
+
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by a
+    hash of the source, every shared header ``csrc/*.cuh`` (any of them may
+    be included) and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

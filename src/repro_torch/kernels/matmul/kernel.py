@@ -1,5 +1,5 @@
-"""Tiled fp32 GEMM for Hopper: the wrapper, its launch count and its plain
-PyTorch version.
+"""Tiled fp32 GEMM for Hopper's tensor cores: the wrapper, its launch count
+and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``matmul`` (body ``_matmul_kernel``) of
 ``src/repro/kernels/matmul/kernel.py``: C = A·B in fp32 with an fp32
@@ -7,11 +7,13 @@ accumulator swept over K in BLOCK_K steps, the K tail masked, and
 ``loop_order`` choosing the raster of output tiles.
 
 The CUDA kernel is ``repro_torch/csrc/matmul.cu``; its header says what
-bounds it on the H100 (fp32 pipes at 2048³, reading B for skinny
-products) and how it covers TPU-sized tiles with 64 x 64 sub-tiles staged
-through shared memory.  In it BLOCK_M, BLOCK_N and LOOP_ORDER change the
-code path, BLOCK_K only the K sweep step; ACC_F32 is ignored, as the Pallas
-kernel ignores it.
+bounds each shape on the H100 (the tensor cores at 2048³, reading B for
+skinny products) and how it takes fp32-accurate products by 3xTF32
+(``csrc/tf32x3.cuh``) with 128 x 128 sub-tiles fed by a cp.async ring.
+BLOCK_M, BLOCK_N and LOOP_ORDER change the code path; BLOCK_K is the unit
+of split-K, which shares the K sweep among blocks when the output tiles
+fill less than half of the blocks the card holds at once (``split_count``);
+ACC_F32 is ignored, as the Pallas kernel ignores it.
 
 ``matmul`` launches the kernel for CUDA tensors and raises when the build
 or the launch fails; it takes ``matmul_plain`` only for tensors on the CPU
@@ -24,17 +26,49 @@ import functools
 
 import torch
 
+from repro_torch.kernels import tf32x3
 from repro_torch.kernels.common import cdiv, entry, launch
 
 SOURCE = "matmul.cu"
+CPU_SMS = 132                # the H100 SXM's SMs: the split the CPU emulates
+BLOCKS_PER_SM = 2            # blocks an SM holds at once (at most 105 KB of
+                             # shared memory each, registers for two)
 _LOOP_ORDERS = {"mnk": 0, "nmk": 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _INT_MAX = 2**31 - 1
 
 
 @functools.cache
 def _entry():
     return entry(SOURCE, "repro_matmul_f32", _ARGTYPES)
+
+
+@functools.cache
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` lies on; on the CPU those of the
+    H100 SXM, so that the plain version splits K as it would there."""
+    if device.type != "cuda":
+        return CPU_SMS
+    return _cuda_sms(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def split_count(m: int, n: int, k: int, block_m: int, block_n: int,
+                block_k: int, sms: int) -> int:
+    """How many blocks share each output tile's K sweep: as many runs of
+    whole BLOCK_K steps (every run non-empty, runs as short as the steps
+    allow) as one wave of blocks holds, a wave being ``BLOCKS_PER_SM``
+    blocks on each of the ``sms`` SMs; 1 when the tiles alone fill it."""
+    tiles = cdiv(m, block_m) * cdiv(n, block_n)
+    steps = cdiv(k, block_k)
+    want = min(steps, (sms * BLOCKS_PER_SM) // max(tiles, 1))
+    if want <= 1:
+        return 1
+    return cdiv(steps, cdiv(steps, want))
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
@@ -61,24 +95,31 @@ def _check(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
                  block_n: int = 128, block_k: int = 128,
                  loop_order: str = "mnk") -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: output tiles in the
-    kernel's raster, each an fp32 sum over BLOCK_K steps of K.  Slicing
-    past an edge stops at it, which masks the ragged M, N and K tails."""
+    """The kernel's arithmetic in plain PyTorch: A and B split into TF32
+    big and small parts (``tf32x3.split``, rounded on the fp32 bits as
+    ``cvt.rna`` rounds), each BLOCK_K step's three products added in fp32,
+    the K sweep cut into the kernel's splits (``split_count`` with the SMs
+    of the operands' card) and the partials added in split order.  Slicing
+    past an edge stops at it, which masks the ragged K tail.  The raster (``loop_order``) and
+    the order of the sums inside one tensor-core product do not change what
+    this computes beyond fp32 rounding."""
     m, k = a.shape
     n = b.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    tiles = [(i, j) for i in range(cdiv(m, block_m))
-             for j in range(cdiv(n, block_n))]
-    if loop_order == "nmk":
-        tiles.sort(key=lambda t: (t[1], t[0]))
-    for i, j in tiles:
-        rows = slice(i * block_m, (i + 1) * block_m)
-        cols = slice(j * block_n, (j + 1) * block_n)
-        acc = torch.zeros_like(c[rows, cols])
-        for k0 in range(0, k, block_k):
-            ks = slice(k0, k0 + block_k)
-            acc += a[rows, ks] @ b[ks, cols]
-        c[rows, cols] = acc
+    splits = split_count(m, n, k, block_m, block_n, block_k,
+                         sm_count(a.device))
+    steps = cdiv(k, block_k)
+    per = cdiv(steps, splits)
+    c = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    if k == 0:
+        return c
+    a_parts, b_parts = tf32x3.split(a), tf32x3.split(b)
+    for s in range(splits):
+        part = None
+        for step in range(s * per, min(steps, (s + 1) * per)):
+            ks = slice(step * block_k, (step + 1) * block_k)
+            part = tf32x3.product(tuple(x[:, ks] for x in a_parts),
+                                  tuple(x[ks] for x in b_parts), part)
+        c = part if s == 0 else c + part
     return c
 
 
@@ -97,12 +138,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return c
+    splits = split_count(m, n, k, block_m, block_n, block_k,
+                         sm_count(a.device))
+    workspace = (torch.empty((splits, m, n), dtype=torch.float32,
+                             device=a.device) if splits > 1 else None)
     rc = launch(_entry(), a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                m, n, k, block_m, block_n, block_k, _LOOP_ORDERS[loop_order])
+                None if workspace is None else workspace.data_ptr(),
+                m, n, k, block_m, block_n, block_k, _LOOP_ORDERS[loop_order],
+                splits)
     if rc != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc} "
                            f"at {(m, n, k)} with blocks "
-                           f"{(block_m, block_n, block_k)}, {loop_order}")
+                           f"{(block_m, block_n, block_k)}, {loop_order}, "
+                           f"{splits} splits")
     matmul.launches += 1
     return c
 

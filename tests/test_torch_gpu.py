@@ -8,7 +8,9 @@ test skips, decided at run time by the ``cuda`` fixture.
 Tolerances, relative to max |plain|, are those of the JAX package's kernel
 tests: matmul 2e-4, transpose exact, conv2d 1e-3, coulomb 5e-4, nbody 1e-3,
 attention 2e-3; the sums run in another order (and rsqrt and exp are the
-hardware's approximations).
+hardware's approximations).  The GEMM and attention take their products by
+3xTF32 on the tensor cores; they are held to the same tolerances against
+their fp32 oracles (TF32 off) at the registry's full sizes too.
 """
 import importlib
 
@@ -18,6 +20,8 @@ import torch
 
 from repro_torch.core.evaluate import DeviceKernelEvaluator
 from repro_torch.kernels.attention import kernel as A
+from repro_torch.kernels import common
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.attention.space import AttentionInput
 from repro_torch.kernels.conv2d.space import ConvInput
 from repro_torch.kernels.coulomb.space import CoulombInput
@@ -94,7 +98,11 @@ def test_cuda_evaluator_times_on_the_card(cuda):
 @pytest.mark.gpu
 def test_a_refused_launch_raises(cuda, monkeypatch):
     entry = K._entry()
-    assert entry(None, None, None, 0, 1, 1, 64, 64, 64, 0, None) != 0
+    assert entry(None, None, None, None, 0, 1, 1, 64, 64, 64, 0, 1,
+                 None) != 0
+    # two splits need a workspace
+    assert entry(None, None, None, None, 16, 16, 256, 64, 64, 128, 0, 2,
+                 None) != 0
     monkeypatch.setattr(K, "_entry", lambda: (lambda *args: 1))
     a, b = _inputs(64, 64, 64, cuda)
     before = K.matmul.launches
@@ -193,7 +201,7 @@ def test_card_evaluator_times_each_paper_kernel(cuda, kernel):
 # value of KEEP_P and Q_PREFETCH, as (BLOCK_Q, BLOCK_K, KEEP_P, Q_PREFETCH).
 ATTENTION_TOL = 2e-3
 ATTENTION_SHAPES = [(4, 16, 4096, 128), (2, 3, 1000, 64), (1, 2, 200, 128),
-                    (1, 1, 1, 64)]
+                    (1, 1, 1, 64), (1, 2, 777, 128)]
 ATTENTION_CONFIGS = [(128, 128, 0, 1), (1024, 1024, 1, 2), (256, 512, 1, 1),
                      (512, 256, 0, 2), (64, 64, 1, 2)]
 
@@ -275,3 +283,90 @@ def test_card_evaluator_times_attention(cuda):
                                AttentionInput(1, 2, 512, 64), reps=3)
     cs = ev.profile(len(ev.space) - 1)
     assert 0 < cs.runtime < 1.0
+
+
+# --- the tensor-core redesign: 3xTF32 products, split-K, unaligned rows -----
+
+# (shape, configs): 16x4096x4096 at BLOCK_K 128 and 1024 (many splits and
+# few) and M = 16 at BLOCK_M 64; 2048^3; rows whose K and N are not
+# multiples of 4
+GEMM_ORACLE_CASES = [
+    ((16, 4096, 4096), [(64, 64, 128, "mnk"), (512, 512, 1024, "nmk"),
+                        (64, 128, 1024, "mnk"), (128, 256, 128, "nmk")]),
+    ((2048, 2048, 2048), [(128, 128, 128, "mnk"), (64, 64, 256, "nmk"),
+                          (512, 512, 1024, "mnk")]),
+    ((1001, 1003, 999), [(64, 64, 128, "mnk"), (256, 128, 512, "nmk"),
+                         (512, 512, 1024, "mnk")]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(GEMM_ORACLE_CASES)),
+                         ids=["x".join(map(str, c[0]))
+                              for c in GEMM_ORACLE_CASES])
+def test_gemm_meets_its_fp32_oracle(cuda, case):
+    shape, configs = GEMM_ORACLE_CASES[case]
+    a, b = _inputs(*shape, cuda)
+    oracle = torch.matmul(a, b)             # TF32 off (the fixture)
+    for cfg in configs:
+        out = K.matmul(a, b, **_kw(cfg))
+        ref = K.matmul_plain(a, b, **_kw(cfg))
+        torch.cuda.synchronize()
+        scale = float(oracle.abs().max())
+        assert float((out - oracle).abs().max()) / scale < TOL, cfg
+        assert float((out - ref).abs().max()) / scale < TOL, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [(64, 64, 128, "mnk"), (512, 512, 1024, "nmk"),
+                                 (128, 128, 128, "mnk")])
+def test_gemm_gives_the_same_bits_twice(cuda, cfg):
+    """Split-K partials are added in a fixed order: no run-to-run noise."""
+    a, b = _inputs(16, 4096, 4096, cuda)
+    bm, bn, bk, _ = cfg
+    splits = K.split_count(16, 4096, 4096, bm, bn, bk, K.sm_count(a.device))
+    assert splits > 1
+    first = K.matmul(a, b, **_kw(cfg))
+    second = K.matmul(a, b, **_kw(cfg))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_gemm_takes_unaligned_storage_on_the_card(cuda, monkeypatch):
+    """Operands that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies inside the kernel, never the plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    a, b = _inputs(100, 128, 256, cuda)
+    oracle = torch.matmul(a, b)
+    bufs = [torch.empty(t.numel() + 1, device=cuda) for t in (a, b)]
+    a1 = bufs[0][1:].view(a.shape).copy_(a)
+    b1 = bufs[1][1:].view(b.shape).copy_(b)
+    assert a1.data_ptr() % 16 and b1.data_ptr() % 16
+    monkeypatch.setattr(K, "matmul_plain", refuse)
+    out = K.matmul(a1, b1, block_m=64, block_n=64, block_k=128)
+    torch.cuda.synchronize()
+    assert float((out - oracle).abs().max() / oracle.abs().max()) < TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 16, 4096, 128), (2, 3, 1000, 64),
+                                   (1, 2, 777, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_meets_its_fp32_oracle(cuda, shape):
+    q, k, v = _attention_args(shape, cuda)
+    oracle = attention_ref(q, k, v)          # TF32 off (the fixture)
+    scale = float(oracle.abs().max())
+    for cfg in ATTENTION_CONFIGS:
+        out = A.flash_attention(q, k, v, **_attention_kw(cfg))
+        torch.cuda.synchronize()
+        assert float((out - oracle).abs().max()) / scale < ATTENTION_TOL, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["matmul.cu", "attention.cu"])
+def test_tensor_core_kernels_hold_hmma_instructions(cuda, source):
+    common.load_library(source)
+    assert common.count_sass(source, "HMMA") > 0

@@ -113,3 +113,12 @@ def test_h100_sxm_spec_matches_the_data_sheet():
     assert (hw.smem_bytes, hw.l2_bytes, hw.power_w) == (232_448, 50e6, 700.0)
     # the fp32 rate derived per clock agrees with the data sheet's
     assert abs(128 * 2 * hw.sms * 1.98e9 / hw.fp32_flops - 1) < 0.01
+
+
+def test_tf32_tensor_core_rates_are_the_data_sheets():
+    """Dense TF32: the data sheet's rates with sparsity (989 and 756
+    TFLOP/s), halved."""
+    assert hwspec.H100_SXM.tf32_flops == 495e12
+    assert hwspec.H100_PCIE.tf32_flops == 378e12
+    assert abs(2 * hwspec.H100_SXM.tf32_flops / 989e12 - 1) < 0.01
+    assert abs(2 * hwspec.H100_PCIE.tf32_flops / 756e12 - 1) < 0.01

@@ -49,7 +49,8 @@ def gemm_inputs(tag):
 def test_field_map_covers_both_specs():
     assert set(FIELD_MAP) == {f.name for f in dataclasses.fields(jhw.HardwareSpec)}
     port_fields = {f.name for f in dataclasses.fields(phw.HardwareSpec)}
-    assert set(FIELD_MAP.values()) | {"l2_bytes", "power_w"} == port_fields
+    assert set(FIELD_MAP.values()) | {"l2_bytes", "power_w",
+                                      "tf32_flops"} == port_fields
 
 
 def test_counter_map_is_one_to_one_and_in_order():

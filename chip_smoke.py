@@ -15,18 +15,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              each, all started together, with nvcc's register /
              shared-memory / spill report; the tensor-core (HMMA)
              instructions of each library counted with ``cuobjdump -sass``,
-             none in matmul or attention failing the phase; then the TF32
-             rate mma.sync sustains on the card (``csrc/mma_probe.cu``, a
-             probe, not a port), the practical ceiling of both kernels.
+             none in matmul or attention failing the phase, and nbody's
+             MUFU, FFMA, FMUL, FADD and LDS instructions; beside them a
+             variant of ``nbody.cu`` built for 4 blocks an SM instead of 3
+             (timed in phase 8); then the TF32 rate mma.sync sustains on
+             the card (``csrc/mma_probe.cu``, a probe, not a port), the
+             practical ceiling of both kernels.
 Then, kernel by kernel (the table ``PORTS``):
 3. check   — the kernel against its plain PyTorch version on the card, at
              every registry input plus a ragged one (and the extra ones),
              at the smallest and largest tiles and each value of every
              parameter that changes the code path (TF32 off); transpose
-             must be exact.  The two kernels on the tensor cores (3xTF32)
-             also meet their fp32 oracle within the same tolerance and give
-             the same bits in two launches; the GEMM's line shows one TF32
-             pass's error beside its own.
+             must be exact; every kernel gives the same bits in two
+             launches.  The two kernels on the tensor cores (3xTF32) also
+             meet their fp32 oracle within the same tolerance; the GEMM's
+             line shows one TF32 pass's error beside its own.
 4. sweep   — ``DeviceKernelEvaluator`` over the whole space at the tune
              input (and at the GEMM's 16x4096x4096 and nbody's 131072
              too): the measured ground truth.
@@ -42,8 +45,12 @@ Then, kernel by kernel (the table ``PORTS``):
              it, the similarity-weighted committee of the others, replay and
              one live tune on the card; conv2d/4096, then attention.
 8. report  — one JSON line with each kernel's times (best and default
-             configuration, plain version, library call), its bound and
-             launches, and the transfer phase's results; the card's name and
+             configuration, plain version, library call; for a kernel bound
+             by bytes a copy_ that moves as many; for nbody the SM clock and
+             power nvidia-smi reads while it runs), its bound and launches;
+             beside the kernels, nbody's issue floor, nbody's variants
+             (the j-split's waves, 3 or 4 blocks an SM, its second kernel
+             alone) and the transfer phase's results; the card's name and
              power limit; and a last line ``{"ok": true, "device": {...}}``.
 
 The script needs CUDA and the checkout's ``src/``; without either it exits
@@ -72,6 +79,11 @@ NOT_PORTED = ()                # every TPU kernel of the JAX package is ported
 # each target's sources are every other port: for conv2d these are the
 # SOURCES of the JAX package's transfer benchmark (benchmarks/bench_transfer.py)
 TRANSFER_TARGETS = (("conv2d", "4096"), ("attention", "default"))
+# nbody's design choices timed side by side in phase 8: the blocks an SM its
+# variant build is bounded for (the port's is 3), and the waves the j-split
+# aims for (the port's rule takes nbody.SPLIT_WAVES, 8)
+NBODY_VARIANT_BLOCKS = 4
+NBODY_WAVES = (1, 8, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,10 +108,14 @@ class Port:
     plain_kw: Optional[Callable] = None  # cfg -> plain version's kwargs
     wrapper: str = ""        # the wrapper's name, if not the kernel's
     # more check inputs, as ragged; kernels on the tensor cores also meet
-    # their fp32 oracle (TF32 off) within tol, give the same bits in two
-    # launches, and must hold HMMA instructions in their SASS
+    # their fp32 oracle (TF32 off) within tol and must hold HMMA
+    # instructions in their SASS
     extra: Tuple[Tuple[str, tuple], ...] = ()
     tensor_cores: bool = False
+    # (inp, hw) -> a floor below which the kernel's own instruction stream
+    # cannot go (ms), reported beside the data-sheet bound with the SM clock
+    # measured while the kernel runs (the floor assumes the boost clock)
+    floor: Optional[Callable] = None
 
     @property
     def tune(self) -> str:
@@ -116,6 +132,15 @@ def _attention_pairs(inp) -> float:
     return float(inp.batch * inp.heads * per_head)
 
 
+def _nbody_issue_floor(inp, hw) -> Tuple[float, str]:
+    """12 fp32-pipe instructions a pair, one a lane a clock."""
+    from repro_torch.kernels.nbody.kernel import (FP32_INSTRUCTIONS_PER_PAIR,
+                                                  issue_floor_ms)
+
+    return (issue_floor_ms(inp.n, hw.fp32_flops),
+            f"{FP32_INSTRUCTIONS_PER_PAIR} fp32-pipe instructions a pair")
+
+
 def _gemm_kw(cfg):
     return dict(block_m=cfg["BLOCK_M"], block_n=cfg["BLOCK_N"],
                 block_k=cfg["BLOCK_K"], loop_order=cfg["LOOP_ORDER"])
@@ -126,6 +151,9 @@ def _gemm_kw(cfg):
 # changes the code path at least once.  The GEMM's take, at 16x4096x4096,
 # BLOCK_K 128 and 1024 (many splits and few) and M = 16 at BLOCK_M 64; its
 # extra input has rows whose K and N are not multiples of 4 (4-byte copies).
+# conv2d's extra inputs have rows whose W is not a multiple of 4 (4-byte
+# halo copies) and F = 7 and 1; nbody's N = 200 takes the j-split at every
+# BLOCK_I.
 PORTS = (
     Port("matmul", "src/repro/kernels/matmul/kernel.py:82", 2e-4,
          checks=((64, 64, 128, "mnk", 1),      # smallest tile
@@ -152,10 +180,12 @@ PORTS = (
                  (64, 1024, 1, 0, 1), (128, 128, 0, 1, 2),
                  (256, 256, 1, 1, 4)),
          ragged=("ConvInput", (1000, 1500, 5)),
-         sweeps=("4096",), train="4096", default=(128, 256, 1, 1, 1),
+         sweeps=("4096",), train="4096", default=(128, 256, 1, 1, 2),
          library="F.conv2d(img, flt, padding=F // 2), cuDNN TF32 off",
          work=lambda i: (4.0 * (2 * i.h * i.w + i.f * i.f),
-                         2.0 * i.f * i.f * i.h * i.w, 0.0, 0.0)),
+                         2.0 * i.f * i.f * i.h * i.w, 0.0, 0.0),
+         extra=(("ConvInput", (1000, 1501, 5)), ("ConvInput", (37, 301, 3)),
+                ("ConvInput", (515, 700, 7)), ("ConvInput", (300, 260, 1)))),
     Port("coulomb", "src/repro/kernels/coulomb/kernel.py:84", 5e-4,
          checks=((1, 4, 64, 4, 0), (64, 8, 1024, 256, 1),
                  (2, 64, 1024, 16, 0), (4, 32, 128, 64, 1),
@@ -176,7 +206,9 @@ PORTS = (
          sweeps=("16k", "131k"), train="131k", default=(256, 256, 1, 0),
          library=None,
          work=lambda i: (32.0 * i.n, 18.0 * i.n * i.n, float(i.n * i.n),
-                         0.0)),
+                         0.0),
+         extra=(("NBodyInput", (200,)),),
+         floor=lambda i, hw: _nbody_issue_floor(i, hw)),
     Port("attention", "src/repro/kernels/attention/kernel.py:105", 2e-3,
          checks=((128, 128, 0, 1), (1024, 1024, 1, 2), (256, 512, 1, 1),
                  (512, 256, 0, 2)),
@@ -203,6 +235,35 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def clock_under_load(fn, seconds: float = 1.0) -> Dict:
+    """The SM clock (MHz) and power (W) nvidia-smi reads every 100 ms while
+    ``fn`` runs back to back for ``seconds``: median and least of each."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=60)[0]
+    rows = [[float(x) for x in line.split(",")]
+            for line in out.strip().splitlines() if line.strip()]
+    if not rows:
+        raise RuntimeError("nvidia-smi read no clock while the kernel ran")
+    clocks = sorted(r[0] for r in rows)
+    power = sorted(r[1] for r in rows)
+    return {"sm_clock_mhz_median": clocks[len(clocks) // 2],
+            "sm_clock_mhz_min": clocks[0],
+            "power_w_median": power[len(power) // 2], "samples": len(rows)}
 
 
 def time_ms(fn, reps: int, flush=None) -> float:
@@ -250,20 +311,47 @@ def _space(port: Port, bench, inp):
         else bench.make_space()
 
 
+def nbody_variant_path() -> Path:
+    return ARTIFACT_DIR / f"nbody_min_blocks_{NBODY_VARIANT_BLOCKS}.so"
+
+
+def build_nbody_variant() -> str:
+    """``csrc/nbody.cu`` built with ``-DNBODY_MIN_BLOCKS=4``: its kernel
+    bounded for 4 blocks of 256 threads an SM (64 registers a thread) where
+    the port's is bounded for 3; returns nvcc's report."""
+    from repro_torch.kernels import common
+
+    ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [common.nvcc(), *common.NVCC_FLAGS,
+         f"-DNBODY_MIN_BLOCKS={NBODY_VARIANT_BLOCKS}", "-o",
+         str(nbody_variant_path()), str(common.CSRC_DIR / "nbody.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the nbody variant "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    return proc.stdout
+
+
 def phase_build():
     from repro_torch.kernels import common
 
     sources = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        variant = pool.submit(build_nbody_variant)
         reports = list(pool.map(common.build, sources))
-    for src, report in zip(sources, reports):
-        log(f"[build] {src} -> {common.library_path(src).name}")
+        reports.append(variant.result())
+    names = sources + [f"nbody.cu -DNBODY_MIN_BLOCKS={NBODY_VARIANT_BLOCKS}"]
+    paths = [common.library_path(src) for src in sources]
+    paths.append(nbody_variant_path())
+    for src, path, report in zip(names, paths, reports):
+        log(f"[build] {src} -> {path.name}")
         for line in report.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "smem")):
                 log(f"[build]   {line.strip()}")
-    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s")
     # tensor-core products in each library's SASS (HMMA: mma.sync)
     hmma = {src: common.count_sass(src, "HMMA") for src in sources}
     log(f"[build] HMMA instructions by library: {hmma}")
@@ -271,7 +359,20 @@ def phase_build():
         if port.tensor_cores and hmma[f"{port.name}.cu"] == 0:
             raise AssertionError(f"{port.name}.cu holds no HMMA instruction: "
                                  "its products do not run on the tensor cores")
-    return hmma
+    # nbody's instruction mix, in the whole library and in each one-lane
+    # kernel (BLOCK_I >= 128, the inner loop of 4 bodies x J_UNROLL pairs):
+    # a pair is 6 FFMA, 3 FMUL, 3 FADD and one MUFU.RSQ; a denormal fix-up
+    # of the rsqrt would add FMUL and FSETP
+    opcodes = ("MUFU.RSQ", "MUFU", "FFMA", "FMUL", "FADD", "LDS", "FSETP")
+    kernels = {"library": ""}
+    kernels.update({f"J_UNROLL {u}, one lane": f"nbody_f32_kernelILi{u}ELb1E"
+                    for u in (1, 2, 4)})
+    nbody_sass = {name: {op: common.count_sass("nbody.cu", op, function=fn)
+                         for op in opcodes}
+                  for name, fn in kernels.items()}
+    for name, counts in nbody_sass.items():
+        log(f"[build] nbody.cu SASS instructions, {name}: {counts}")
+    return hmma, nbody_sass
 
 
 def _rel_err(out, ref) -> Tuple[float, float]:
@@ -313,8 +414,8 @@ def phase_probe(hw, device) -> Dict:
 
 
 def phase_check(port: Port, bench, device):
-    """Kernel against its plain version and, on the tensor cores, against
-    its fp32 oracle (TF32 off) with two launches giving the same bits.
+    """Kernel against its plain version, two launches giving the same bits,
+    and, on the tensor cores, against its fp32 oracle (TF32 off).
     Returns (max_abs_err, max_rel) against the plain version and a dict of
     the oracle errors (empty for the other kernels)."""
     import numpy as np
@@ -356,16 +457,15 @@ def phase_check(port: Port, bench, device):
                     raise AssertionError(
                         f"{port.name} {inp.tag} {cfg}: rel err {rel_o:.3e} "
                         f"against the fp32 oracle > {port.tol}")
-                if not torch.equal(bench.run(cfg, *args), out):
-                    raise AssertionError(f"{port.name} {inp.tag} {cfg}: two "
-                                         "launches gave different bits")
+            if not torch.equal(bench.run(cfg, *args), out):
+                raise AssertionError(f"{port.name} {inp.tag} {cfg}: two "
+                                     "launches gave different bits")
         line = (f"[check] {port.name} {tag} ({inp.tag}): {len(port.checks)} "
                 f"configs {'exact' if port.tol == 0.0 else f'within {port.tol}'}"
-                f" against the plain version")
+                f" against the plain version; the same bits in two launches")
         if exact is not None:
             entry = {"kernel_rel_err": worst_oracle}
-            line += (f"; against the fp32 oracle {worst_oracle:.3e}, the same "
-                     "bits in two launches")
+            line += f"; against the fp32 oracle {worst_oracle:.3e}"
             if port.name == "matmul":
                 torch.backends.cuda.matmul.allow_tf32 = True
                 try:
@@ -690,8 +790,11 @@ def _sdpa_backend(q, k, v) -> str:
 
 def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
     """Times of the kernel (best and default config), its plain version and
-    the library call, and the bound, at one input."""
+    the library call, and the bound, at one input; for a kernel bound by
+    bytes, a copy_ that moves as many bytes (half read, half written) under
+    the same L2 flush: the rate device memory gives a plain stream."""
     import numpy as np
+    import torch
 
     args = bench.make_args(inp, np.random.default_rng(0), device)
     best = rec.space[int(rec.runtimes.argmin())]
@@ -716,6 +819,108 @@ def kernel_times(port: Port, bench, inp, rec, hw, device, flush):
     if port.name == "attention":
         out["library_backend"] = _sdpa_backend(*args)
     out.update(bound(port, inp, hw))
+    if port.floor is not None:
+        out["under_load"] = clock_under_load(lambda: run(best, *args))
+    if out["bound_by"] == "bytes":
+        src = torch.empty(int(port.work(inp)[0]) // 8, dtype=torch.float32,
+                          device=device)
+        dst = torch.empty_like(src)
+        out["copy_ms"] = time_ms(lambda: dst.copy_(src), 20, flush)
+    return out
+
+
+def phase_nbody_variants(records, device, flush) -> Dict:
+    """nbody's design choices timed side by side at each sweep's best
+    configuration (median of 20 launches, L2 flushed before each): the
+    j-split aiming at each of ``NBODY_WAVES`` waves, each with the kernel
+    bounded for 3 blocks an SM (the port's) and for 4
+    (``build_nbody_variant``); and the split's second kernel alone at the
+    rule's split count, on partial sums of the same size.  Every variant's
+    output is held against the wrapper's within nbody's tolerance."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.nbody import kernel as NB
+    from repro_torch.kernels.registry import BENCHMARKS
+
+    bench = BENCHMARKS["nbody"]
+    variant = ctypes.CDLL(str(nbody_variant_path())).repro_nbody_f32
+    variant.argtypes, variant.restype = NB._ARGTYPES, ctypes.c_int
+    entries = {3: NB._entry(), NBODY_VARIANT_BLOCKS: variant}
+    sms = common.sm_count(device)
+    report = {}
+    for tag, rec in records.items():
+        inp = bench.inputs[tag]
+        cfg = rec.space[int(rec.runtimes.argmin())]
+        bi, bj, unroll = cfg["BLOCK_I"], cfg["BLOCK_J"], cfg["J_UNROLL"]
+        n = inp.n
+        bodies = bench.make_args(inp, np.random.default_rng(0), device)[0]
+        ref = NB.nbody(bodies, block_i=bi, block_j=bj, j_unroll=unroll)
+        out = torch.empty_like(ref)
+        row = {"config": cfg, "splits": {}, "ms": {}}
+        for waves in NBODY_WAVES:
+            splits = NB.split_count(n, bi, bj, sms, waves)
+            row["splits"][str(waves)] = splits
+            ws = (torch.empty((splits, n, 4), dtype=torch.float32,
+                              device=device) if splits > 1 else None)
+            for blocks, fn in entries.items():
+                def run(fn=fn, ws=ws, splits=splits):
+                    rc = common.launch(
+                        fn, device, bodies.data_ptr(), out.data_ptr(),
+                        None if ws is None else ws.data_ptr(), n, bi, bj,
+                        unroll, splits, 1e-3)
+                    if rc != 0:
+                        raise RuntimeError(f"nbody variant launch failed: "
+                                           f"CUDA error {rc}")
+
+                run()
+                rel = _rel_err(out, ref)[1]
+                if rel > 1e-3:
+                    raise AssertionError(f"nbody variant ({blocks} blocks, "
+                                         f"{waves} waves): rel err {rel:.3e}")
+                row["ms"][f"{blocks} blocks, {waves} waves"] = time_ms(
+                    run, 20, flush)
+            del ws
+        splits = NB.split_count(n, bi, bj, sms)
+        if splits > 1:
+            partial = torch.randn((splits, n, 4), device=device)
+
+            def run_sum():
+                rc = common.launch(NB._sum_entry(), device,
+                                   partial.data_ptr(), out.data_ptr(), n,
+                                   splits)
+                if rc != 0:
+                    raise RuntimeError(f"nbody sum launch failed: CUDA "
+                                       f"error {rc}")
+
+            row["sum_splits_ms"] = time_ms(run_sum, 20, flush)
+            del partial
+        report[inp.tag] = row
+        log(f"[variants] nbody {inp.tag} at {cfg}: splits by waves "
+            f"{row['splits']}; ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row["ms"].items())
+            + (f"; the split's second kernel alone "
+               f"{row['sum_splits_ms']:.4f} ms at {splits} splits"
+               if "sum_splits_ms" in row else ""))
+    return report
+
+
+def _extra_report(times: Dict, floor: Optional[Dict]) -> str:
+    """The issue floor with the clock under load, and the copy yardstick,
+    where a kernel has them."""
+    out = ""
+    if floor is not None:
+        load = times["under_load"]
+        out += (f", issue floor {floor['issue_floor_ms']:.4f} ms "
+                f"({floor['counts']} at the boost clock; SM clock "
+                f"under load {load['sm_clock_mhz_median']:.0f} MHz, least "
+                f"{load['sm_clock_mhz_min']:.0f}, "
+                f"{load['power_w_median']:.1f} W)")
+    if "copy_ms" in times:
+        out += f", copy_ of as many bytes {times['copy_ms']:.4f} ms"
     return out
 
 
@@ -793,7 +998,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 2: build, and the tensor cores' rate through mma.sync
-    hmma = phase_build()
+    hmma, nbody_sass = phase_build()
     probe = phase_probe(hw, device)
 
     # phases 3-6, kernel by kernel
@@ -815,7 +1020,7 @@ def main() -> int:
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
-    entries = []
+    entries, floors, variants = [], {}, {}
     for port, (head, rest, port_records, _) in zip(PORTS, results):
         bench = BENCHMARKS[port.name]
         times = kernel_times(port, bench, bench.inputs[port.tune],
@@ -826,18 +1031,37 @@ def main() -> int:
                 port, bench, bench.inputs[tag], port_records[tag], hw,
                 device, flush)
         entries.append(entry)
+        floor = {}
+        if port.floor is not None:
+            for tag in port.sweeps:
+                inp = bench.inputs[tag]
+                ms, counts = port.floor(inp, hw)
+                floor[inp.tag] = {"issue_floor_ms": ms, "counts": counts}
+            floors[port.name] = floor
+        if port.name == "nbody":
+            variants = phase_nbody_variants(port_records, device, flush)
         library = times["library_ms"]
         log(f"[report] {port.name} {times['shape']}: best "
             f"{times['kernel_ms_best']:.4f} ms, default "
             f"{times['kernel_ms_default']:.4f} ms, plain "
             f"{times['plain_ms']:.4f} ms, library "
             f"{'none' if library is None else f'{library:.4f} ms'}, bound "
-            f"{times['bound_ms']:.4f} ms ({times['bound_unit']})")
+            f"{times['bound_ms']:.4f} ms ({times['bound_unit']})"
+            + _extra_report(times, floor.get(times["shape"])))
+        for tag in port.sweeps[1:]:
+            at = entry["at_" + bench.inputs[tag].tag]
+            log(f"[report] {port.name} {at['shape']}: best "
+                f"{at['kernel_ms_best']:.4f} ms, default "
+                f"{at['kernel_ms_default']:.4f} ms, plain "
+                f"{at['plain_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms"
+                + _extra_report(at, floor.get(at["shape"])))
     report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
               "transfer": transfer, "exact_hit": exact,
-              "hmma_instructions": hmma, "mma_probe": probe}
+              "hmma_instructions": hmma, "nbody_sass": nbody_sass,
+              "mma_probe": probe, "issue_floors": floors,
+              "nbody_variants": variants}
     log(f"[time] report {time.perf_counter() - t0:.1f} s")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

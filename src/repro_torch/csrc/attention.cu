@@ -84,6 +84,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -110,7 +111,7 @@ __device__ __forceinline__ void load_tile(float* tile, const float* head,
     const bool valid = row < S;
     const float* src =
         head + (valid ? static_cast<size_t>(row) * D + col : size_t{0});
-    tf32x3::cp_async16(tile + r * (D + 4) + col, src, valid ? 16 : 0);
+    async_copy::cp_async16(tile + r * (D + 4) + col, src, valid ? 16 : 0);
   }
 }
 
@@ -188,10 +189,10 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D, kSub>(Qs, q, q0, S);
     load_tile<D, kKeys>(Ks, k, 0, S);
     if (kStages == 2) load_tile<D, kKeys>(Vs, v, 0, S);
-    tf32x3::cp_async_commit();
+    async_copy::cp_async_commit();
     if (kStages == 1) {
       load_tile<D, kKeys>(Vs, v, 0, S);
-      tf32x3::cp_async_commit();
+      async_copy::cp_async_commit();
     }
 
     float m[kMT][2], l[kMT][2], acc[kMT][kNO][4];
@@ -220,9 +221,9 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
           load_tile<D, kKeys>(Ks + (stage ^ 1) * kTileKV, k, kv0 + kKeys, S);
           load_tile<D, kKeys>(Vs + (stage ^ 1) * kTileKV, v, kv0 + kKeys, S);
         }
-        tf32x3::cp_async_commit();
+        async_copy::cp_async_commit();
       }
-      tf32x3::cp_async_wait<1>();        // K of tile it (and V with 2 stages)
+      async_copy::cp_async_wait<1>();    // K of tile it (and V with 2 stages)
       __syncthreads();
 
       // s = Q K^T: the warp's 32 rows x 32 keys; a K fragment, split once,
@@ -251,7 +252,7 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (kStages == 1) {
         __syncthreads();                 // every warp is done with K
         if (it + 1 < n_kv) load_tile<D, kKeys>(Ks, k, kv0 + kKeys, S);
-        tf32x3::cp_async_commit();
+        async_copy::cp_async_commit();
       }
 
       // scale, then mask unless every key of the tile is real and (when
@@ -299,7 +300,7 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 
       if (kStages == 1) {
-        tf32x3::cp_async_wait<1>();      // V of tile it
+        async_copy::cp_async_wait<1>();      // V of tile it
         __syncthreads();
       }
 
@@ -327,7 +328,7 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (kStages == 1) {
         __syncthreads();                 // every warp is done with V
         if (it + 1 < n_kv) load_tile<D, kKeys>(Vs, v, kv0 + kKeys, S);
-        tf32x3::cp_async_commit();
+        async_copy::cp_async_commit();
       }
     }
 

@@ -69,6 +69,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -125,12 +126,12 @@ __device__ __forceinline__ void load_chunk(
       const int valid = gr < m_end ? max(0, min(4, k_hi - gk)) : 0;
       const float* src =
           valid ? A + static_cast<size_t>(gr) * K + gk : A;
-      tf32x3::cp_async16(dst, src, 4 * valid);
+      async_copy::cp_async16(dst, src, 4 * valid);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool ok = gr < m_end && gk + j < k_hi;
-        tf32x3::cp_async4(dst + j,
+        async_copy::cp_async4(dst + j,
                           ok ? A + static_cast<size_t>(gr) * K + gk + j : A,
                           ok);
       }
@@ -149,12 +150,12 @@ __device__ __forceinline__ void load_chunk(
       const int valid = gk < k_hi ? max(0, min(4, n_end - gc)) : 0;
       const float* src =
           valid ? B + static_cast<size_t>(gk) * N + gc : B;
-      tf32x3::cp_async16(dst, src, 4 * valid);
+      async_copy::cp_async16(dst, src, 4 * valid);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool ok = gk < k_hi && gc + j < n_end;
-        tf32x3::cp_async4(dst + j,
+        async_copy::cp_async4(dst + j,
                           ok ? B + static_cast<size_t>(gk) * N + gc + j : B,
                           ok);
       }
@@ -252,11 +253,11 @@ matmul_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
           load_chunk<kSubM, kSubN, kVec>(smem + s * T::kStage, A, B, N, K, sm,
                                          sn, m_end, n_end, k_lo + s * kChunk,
                                          k_hi, a_rows, b_cols);
-        tf32x3::cp_async_commit();
+        async_copy::cp_async_commit();
       }
 
       for (int c = 0; c < n_chunks; ++c) {
-        tf32x3::cp_async_wait<kStages - 2>();   // chunk c has landed
+        async_copy::cp_async_wait<kStages - 2>();   // chunk c has landed
         __syncthreads();                        // and chunk c - 1 is used
         const int next = c + kStages - 1;
         if (next < n_chunks)
@@ -264,7 +265,7 @@ matmul_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                                          A, B, N, K, sm, sn, m_end, n_end,
                                          k_lo + next * kChunk, k_hi, a_rows,
                                          b_cols);
-        tf32x3::cp_async_commit();
+        async_copy::cp_async_commit();
 
         const float* As = smem + (c % kStages) * T::kStage;
         if (full)
@@ -274,7 +275,7 @@ matmul_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
           chunk_products<kSubM, kSubN, false>(acc, As, wm, wn, g, t, m_rows,
                                               n_cols);
       }
-      tf32x3::cp_async_wait<0>();
+      async_copy::cp_async_wait<0>();
       __syncthreads();                 // the ring is free for the next sub-tile
 
 #pragma unroll

@@ -1,5 +1,5 @@
-"""Shared helpers for the port's kernels: tiling arithmetic and the CUDA
-build.
+"""Shared helpers for the port's kernels: tiling arithmetic, the card's SM
+count and the CUDA build.
 
 A CUDA source in ``repro_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  The library
@@ -10,6 +10,7 @@ source or header is rebuilt and an unchanged one is not.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,6 +24,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+CPU_SMS = 132                  # the H100 SXM's SMs: the splits the CPU sees
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -49,7 +52,28 @@ def lane_efficiency_2d(bm: int, bn: int, m: int, n: int) -> float:
     return tile_eff * edge_eff
 
 
-def _nvcc() -> str:
+@functools.cache
+def _cuda_sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of the card ``device`` (a ``torch.device``) lies on; on the
+    CPU those of the H100 SXM, so that a plain version splits its work as
+    the kernel would there."""
+    if device.type != "cuda":
+        return CPU_SMS
+    import torch
+
+    return _cuda_sms(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def nvcc() -> str:
+    """The path of ``nvcc``: on PATH, else under CUDA_HOME, CUDA_PATH or
+    /usr/local/cuda."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -61,19 +85,30 @@ def _nvcc() -> str:
     return str(path)
 
 
-def count_sass(source: str, opcode: str) -> int:
-    """How many instructions of ``opcode`` (e.g. ``HMMA``, a tensor-core
-    product) the built library of ``csrc/<source>`` holds, from
-    ``cuobjdump -sass``; raises if the tool fails."""
-    tool = Path(_nvcc()).with_name("cuobjdump")
-    proc = subprocess.run([str(tool), "-sass", str(library_path(source))],
+@functools.cache
+def _sass(library: Path) -> str:
+    tool = Path(nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(library)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed on {library_path(source)} "
+        raise RuntimeError(f"cuobjdump failed on {library} "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
-    return sum(1 for line in proc.stdout.splitlines()
-               if f" {opcode}" in line or f"\t{opcode}" in line)
+    return proc.stdout
+
+
+def count_sass(source: str, opcode: str, function: str = "") -> int:
+    """How many instructions of ``opcode`` (e.g. ``HMMA``, a tensor-core
+    product; ``MUFU.RSQ``) the built library of ``csrc/<source>`` holds,
+    in the kernels whose (mangled) name contains ``function``, from
+    ``cuobjdump -sass``; raises if the tool fails."""
+    count, inside = 0, not function
+    for line in _sass(library_path(source)).splitlines():
+        if "Function : " in line:
+            inside = function in line
+        elif inside and (f" {opcode}" in line or f"\t{opcode}" in line):
+            count += 1
+    return count
 
 
 def library_path(source: str) -> Path:
@@ -99,7 +134,7 @@ def build(source: str) -> str:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

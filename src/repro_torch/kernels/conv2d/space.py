@@ -7,7 +7,8 @@ the constant cache (``CONST_RD``) and FILTER_SMEM=0 prices it read from
 device memory by each block (``DRAM_RD``), which is what the CUDA kernel
 does.  The model keeps its TPU-shaped terms (whole halo tiles as DMA
 traffic, the (8, 128) register tiling); re-deriving it for the CUDA
-kernel's 32 x 128 sub-tiles is queued in ROADMAP.md.
+kernel's 32 x 128 sub-tiles, 8 x 4 register blocks and halo ring is queued
+in ROADMAP.md.
 """
 from __future__ import annotations
 

@@ -27,10 +27,9 @@ import functools
 import torch
 
 from repro_torch.kernels import tf32x3
-from repro_torch.kernels.common import cdiv, entry, launch
+from repro_torch.kernels.common import cdiv, entry, launch, sm_count
 
 SOURCE = "matmul.cu"
-CPU_SMS = 132                # the H100 SXM's SMs: the split the CPU emulates
 BLOCKS_PER_SM = 2            # blocks an SM holds at once (at most 105 KB of
                              # shared memory each, registers for two)
 _LOOP_ORDERS = {"mnk": 0, "nmk": 1}
@@ -41,20 +40,6 @@ _INT_MAX = 2**31 - 1
 @functools.cache
 def _entry():
     return entry(SOURCE, "repro_matmul_f32", _ARGTYPES)
-
-
-@functools.cache
-def _cuda_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device: torch.device) -> int:
-    """The SMs of the card ``device`` lies on; on the CPU those of the
-    H100 SXM, so that the plain version splits K as it would there."""
-    if device.type != "cuda":
-        return CPU_SMS
-    return _cuda_sms(device.index if device.index is not None
-                     else torch.cuda.current_device())
 
 
 def split_count(m: int, n: int, k: int, block_m: int, block_n: int,

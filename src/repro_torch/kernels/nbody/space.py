@@ -3,8 +3,8 @@
 The space and the model are the JAX package's, value for value and formula
 for formula, under the Hopper counter names of ``core/counters.py``.  The
 model keeps its TPU-shaped terms ((BLOCK_I, BLOCK_J) pairwise tiles on the
-(8, 128) register tiling); re-deriving it for the CUDA kernel's one thread
-per body is queued in ROADMAP.md.
+(8, 128) register tiling); re-deriving it for the CUDA kernel's four
+register-resident bodies a thread and its j-split is queued in ROADMAP.md.
 """
 from __future__ import annotations
 

@@ -370,3 +370,167 @@ def test_attention_meets_its_fp32_oracle(cuda, shape):
 def test_tensor_core_kernels_hold_hmma_instructions(cuda, source):
     common.load_library(source)
     assert common.count_sass(source, "HMMA") > 0
+
+
+# --- nbody and conv2d redesigned: the j-split, ragged rows, the halo ring -----
+
+from repro_torch.kernels.conv2d import kernel as CV  # noqa: E402
+from repro_torch.kernels.nbody import kernel as NB   # noqa: E402
+
+# (N, configs as (BLOCK_I, BLOCK_J, J_UNROLL)): BLOCK_I 8 and 1024, the
+# j-split largest (BLOCK_J 32 at N = 16384) and runs a few tiles long
+NBODY_SPLIT_CASES = [(n, cfg) for n in (200, 10000, 16384)
+                     for cfg in ((8, 32, 4), (8, 2048, 1), (1024, 32, 2),
+                                 (1024, 2048, 4), (128, 256, 1))]
+
+
+def _bodies(n, device):
+    return BENCHMARKS["nbody"].make_args(NBodyInput(n),
+                                         np.random.default_rng(0), device)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cfg", NBODY_SPLIT_CASES,
+                         ids=[f"{n}-{'-'.join(map(str, c))}"
+                              for n, c in NBODY_SPLIT_CASES])
+def test_nbody_split_matches_its_plain_version(cuda, n, cfg):
+    bi, bj, unroll = cfg
+    bodies = _bodies(n, cuda)
+    splits = NB.split_count(n, bi, bj, common.sm_count(cuda))
+    if (n, bi, bj) == (16384, 1024, 32):
+        assert splits > 1                  # the card is filled by splitting
+    ref = NB.nbody_plain(bodies)
+    before = NB.nbody.launches
+    out = NB.nbody(bodies, block_i=bi, block_j=bj, j_unroll=unroll)
+    assert NB.nbody.launches == before + 1
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all()) and bool((out[:, 3] == 0).all())
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err < 1e-3, (splits, err)
+
+
+# (H, W, F) and configs as (BY, BX, UNROLL_TAPS, FILTER_SMEM, DMA_DEPTH):
+# rows whose W % 4 != 0 (4-byte copies), F = 1 and 7 unrolled, F = 9 looped,
+# each DMA_DEPTH with tiles of one sub-tile and of many
+CONV_CASES = [(1000, 1501, 5), (37, 301, 3), (300, 260, 1), (515, 700, 7),
+              (200, 333, 9)]
+CONV_CONFIGS = [(32, 128, 1, 1, 1), (128, 256, 1, 0, 2), (512, 1024, 1, 1, 4),
+                (16, 512, 0, 1, 2), (64, 128, 0, 0, 4), (256, 384, 0, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CONV_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv2d_ragged_rows_taps_and_depths(cuda, shape):
+    img, flt = BENCHMARKS["conv2d"].make_args(ConvInput(*shape),
+                                              np.random.default_rng(0), cuda)
+    ref = CV.conv2d_plain(img, flt)
+    for by, bx, unroll, fsmem, depth in CONV_CONFIGS:
+        unroll = unroll if shape[2] in CV.UNROLLED_F else 0
+        out = CV.conv2d(img, flt, by=by, bx=bx, unroll_taps=unroll,
+                        filter_smem=fsmem, dma_depth=depth)
+        torch.cuda.synchronize()
+        assert bool(out.isfinite().all())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err < 1e-3, ((by, bx, unroll, fsmem, depth), err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [(32, 128, 1, 1, 1), (128, 256, 0, 0, 4)])
+def test_conv2d_reads_nothing_outside_the_image(cuda, cfg):
+    """The image lies between NaN-filled rows of one buffer, starting 4
+    bytes past a 16-byte boundary: a halo copy that read outside the image
+    instead of zero-filling would poison the output."""
+    h, w = 300, 517
+    img, flt = BENCHMARKS["conv2d"].make_args(ConvInput(h, w, 5),
+                                              np.random.default_rng(0), cuda)
+    buf = torch.full(((h + 8) * w + 1,), float("nan"), device=cuda)
+    inner = buf[4 * w + 1:4 * w + 1 + h * w].view(h, w)
+    inner.copy_(img)
+    assert inner.data_ptr() % 16
+    by, bx, unroll, fsmem, depth = cfg
+    out = CV.conv2d(inner, flt, by=by, bx=bx, unroll_taps=unroll,
+                    filter_smem=fsmem, dma_depth=depth)
+    ref = CV.conv2d_plain(img, flt)
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all())
+    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,cfg", [
+    ("nbody", (1024, 32, 4, 0)), ("nbody", (8, 2048, 1, 0)),
+    ("nbody", (128, 256, 2, 0)),
+    ("conv2d", (32, 128, 1, 1, 1)), ("conv2d", (512, 1024, 0, 0, 4)),
+    ("conv2d", (128, 256, 1, 0, 2))])
+def test_nbody_and_conv2d_give_the_same_bits_twice(cuda, kernel, cfg):
+    bench = BENCHMARKS[kernel]
+    inp = bench.default_input
+    args = bench.make_args(inp, np.random.default_rng(0), cuda)
+    config = {p.name: v for p, v in zip(bench.make_space().parameters, cfg)}
+    first = bench.run(config, *args)
+    second = bench.run(config, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 3, 32])
+def test_nbody_sum_splits_adds_the_slices_in_order(cuda, splits):
+    """The j-split's second kernel alone: slice 0 + slice 1 + ... in that
+    order, bit for bit, column 3 zero."""
+    n = 1000
+    gen = torch.Generator(device=cuda).manual_seed(splits)
+    partial = torch.randn((splits, n, 4), generator=gen, device=cuda)
+    out = torch.empty((n, 4), device=cuda)
+    assert common.launch(NB._sum_entry(), cuda, partial.data_ptr(),
+                         out.data_ptr(), n, splits) == 0
+    ref = partial[0].clone()
+    for s in range(1, splits):
+        ref += partial[s]
+    ref[:, 3] = 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert common.launch(NB._sum_entry(), cuda, partial.data_ptr(),
+                         out.data_ptr(), n, 0) != 0
+
+
+@pytest.mark.gpu
+def test_refused_nbody_and_conv2d_launches_raise(cuda, monkeypatch):
+    nbody_entry, conv_entry = NB._entry(), CV._entry()
+    # two runs of the j range need a workspace; BLOCK_I 24 is not a power
+    # of two; one tile cannot make two runs
+    assert nbody_entry(None, None, None, 64, 64, 32, 1, 2, 1e-3, None) != 0
+    assert nbody_entry(None, None, None, 64, 24, 32, 1, 1, 1e-3, None) != 0
+    assert nbody_entry(None, None, None, 64, 64, 64, 1, 2, 1e-3, None) != 0
+    # DMA_DEPTH 5 and 0
+    for depth in (5, 0):
+        assert conv_entry(None, None, None, 8, 8, 5, 32, 128, 1, 1, depth,
+                          None) != 0
+    monkeypatch.setattr(NB, "_entry", lambda: (lambda *args: 1))
+    monkeypatch.setattr(CV, "_entry", lambda: (lambda *args: 1))
+    before = (NB.nbody.launches, CV.conv2d.launches)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        NB.nbody(_bodies(64, cuda))
+    img = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        CV.conv2d(img, torch.zeros((5, 5), device=cuda))
+    assert (NB.nbody.launches, CV.conv2d.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll", [1, 2, 4])
+def test_nbody_rsqrt_is_a_lone_mufu(cuda, unroll):
+    """rsqrt.approx.ftz compiles to MUFU.RSQ with no denormal fix-up: the
+    one-lane kernel's inner loop holds 4 bodies x J_UNROLL pairs of 6 FFMA,
+    3 FMUL, 3 FADD and one MUFU.RSQ, and no FSETP."""
+    common.load_library(NB.SOURCE)
+    fn = f"nbody_f32_kernelILi{unroll}ELb1E"
+
+    def count(op):
+        return common.count_sass(NB.SOURCE, op, function=fn)
+
+    pairs = NB.BODIES_PER_THREAD * unroll
+    assert count("MUFU.RSQ") == pairs
+    assert count("FFMA") == 6 * pairs and count("FMUL") == 3 * pairs
+    assert count("FSETP") == 0

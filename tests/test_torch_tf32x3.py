@@ -132,7 +132,7 @@ def test_emulating_gemm_matches_pallas_and_oracle(shape, cfg):
 
 def test_the_skinny_case_splits_k_and_sums_in_split_order():
     m, n, k, bk = 16, 256, 2048, 128
-    splits = K.split_count(m, n, k, 64, 128, bk, K.CPU_SMS)
+    splits = K.split_count(m, n, k, 64, 128, bk, common.CPU_SMS)
     assert splits > 1
     a, b = (torch.from_numpy(x) for x in _gemm(m, n, k, seed=2))
     out = K.matmul_plain(a, b, block_m=64, block_n=128, block_k=bk)

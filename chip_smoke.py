@@ -18,7 +18,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              none in matmul or attention failing the phase, and nbody's
              MUFU, FFMA, FMUL, FADD and LDS instructions; beside them a
              variant of ``nbody.cu`` built for 4 blocks an SM instead of 3
-             (timed in phase 8); then the TF32 rate mma.sync sustains on
+             (timed in phase 9) and a probe of ``conv2d.cu`` with
+             register-blocked taps at F = 15, built for its report; no
+             kernel of attention.cu or conv2d.cu may spill; then the TF32
+             rate mma.sync sustains on
              the card (``csrc/mma_probe.cu``, a probe, not a port), the
              practical ceiling of both kernels.
 Then, kernel by kernel (the table ``PORTS``):
@@ -44,7 +47,16 @@ Then, kernel by kernel (the table ``PORTS``):
              the TP→PC models phase 5 trained, a target space left out of
              it, the similarity-weighted committee of the others, replay and
              one live tune on the card; conv2d/4096, then attention.
-8. report  — one JSON line with each kernel's times (best and default
+8. fleet   — the fleet on the card (``phase_fleet``), through the entry
+             points of ``python -m repro_torch.launch.fleet``: a
+             ``SubprocessWorkerPool`` with one lane on cuda:0 and a fresh
+             ``ConfigStore``; round 1, one cold job (random, budget 25) at
+             each kernel's train input; round 2, one job at each swept input
+             with no searcher named, warm-started from round 1's artifacts.
+             It fails on an infinite best, a lane on another card, a kernel
+             the lane never launched, or a round-2 job that did not
+             warm-start although its space has an artifact.
+9. report  — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
              power nvidia-smi reads while it runs), its bound and launches;
@@ -52,6 +64,10 @@ Then, kernel by kernel (the table ``PORTS``):
              (the j-split's waves, 3 or 4 blocks an SM, its second kernel
              alone) and the transfer phase's results; the card's name and
              power limit; and a last line ``{"ok": true, "device": {...}}``.
+
+The check phase also holds attention at every compiled head dim and at
+padded ones, and conv2d at F = 9 and F = MAX_F with unrolled and looped
+taps (the lowering above the compiled F), against their plain versions.
 
 The script needs CUDA and the checkout's ``src/``; without either it exits
 non-zero before printing any result.  It imports nothing of JAX.
@@ -79,11 +95,16 @@ NOT_PORTED = ()                # every TPU kernel of the JAX package is ported
 # each target's sources are every other port: for conv2d these are the
 # SOURCES of the JAX package's transfer benchmark (benchmarks/bench_transfer.py)
 TRANSFER_TARGETS = (("conv2d", "4096"), ("attention", "default"))
-# nbody's design choices timed side by side in phase 8: the blocks an SM its
+# nbody's design choices timed side by side in phase 9: the blocks an SM its
 # variant build is bounded for (the port's is 3), and the waves the j-split
 # aims for (the port's rule takes nbody.SPLIT_WAVES, 8)
 NBODY_VARIANT_BLOCKS = 4
 NBODY_WAVES = (1, 8, 32)
+CONV2D_PROBE_F = 15         # the F past conv2d's compiled unrolled taps
+FLEET_DEVICE = "cuda:0"     # the fleet phase's one lane
+# the head dims the check phase holds attention at beside the registry's:
+# every compiled one, and padded ones between them (1 to 256)
+ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +206,10 @@ PORTS = (
          work=lambda i: (4.0 * (2 * i.h * i.w + i.f * i.f),
                          2.0 * i.f * i.f * i.h * i.w, 0.0, 0.0),
          extra=(("ConvInput", (1000, 1501, 5)), ("ConvInput", (37, 301, 3)),
-                ("ConvInput", (515, 700, 7)), ("ConvInput", (300, 260, 1)))),
+                ("ConvInput", (515, 700, 7)), ("ConvInput", (300, 260, 1)),
+                # register-blocked taps at F = 9; at F = MAX_F, UNROLL_TAPS
+                # = 1 lowered to the looped kernel
+                ("ConvInput", (515, 700, 9)), ("ConvInput", (300, 517, 31)))),
     Port("coulomb", "src/repro/kernels/coulomb/kernel.py:84", 5e-4,
          checks=((1, 4, 64, 4, 0), (64, 8, 1024, 256, 1),
                  (2, 64, 1024, 16, 0), (4, 32, 128, 64, 1),
@@ -221,7 +245,9 @@ PORTS = (
                          _attention_pairs(i),
                          4.0 * i.head_dim * _attention_pairs(i)),
          wrapper="flash_attention",
-         extra=(("AttentionInput", (1, 2, 777, 128)),), tensor_cores=True),
+         extra=(("AttentionInput", (1, 2, 777, 128)),) + tuple(
+             ("AttentionInput", (1, 4, 500, d)) for d in ATTENTION_CHECK_DIMS),
+         tensor_cores=True),
 )
 
 
@@ -315,22 +341,49 @@ def nbody_variant_path() -> Path:
     return ARTIFACT_DIR / f"nbody_min_blocks_{NBODY_VARIANT_BLOCKS}.so"
 
 
-def build_nbody_variant() -> str:
-    """``csrc/nbody.cu`` built with ``-DNBODY_MIN_BLOCKS=4``: its kernel
-    bounded for 4 blocks of 256 threads an SM (64 registers a thread) where
-    the port's is bounded for 3; returns nvcc's report."""
+# Builds beside the port's, each (source, flag, library): nbody's kernel
+# bounded for 4 blocks of 256 threads an SM (64 registers a thread) where
+# the port's is bounded for 3, timed in phase 9; and conv2d with
+# register-blocked taps for one F past the compiled ones, built only for
+# ptxas's report (where the unrolled taps start to spill).
+VARIANTS = (
+    ("nbody.cu", f"-DNBODY_MIN_BLOCKS={NBODY_VARIANT_BLOCKS}",
+     nbody_variant_path()),
+    ("conv2d.cu", f"-DREPRO_CONV2D_PROBE_F={CONV2D_PROBE_F}",
+     ARTIFACT_DIR / f"conv2d_probe_f{CONV2D_PROBE_F}.so"),
+)
+# sources whose every compiled kernel must be free of spills: the head dims
+# and filter sizes they compile were chosen for it
+NO_SPILL_SOURCES = ("attention.cu", "conv2d.cu")
+
+
+def build_variant(source: str, flag: str, path: Path) -> str:
+    """``csrc/<source>`` built with ``flag`` into ``path``; returns nvcc's
+    report."""
     from repro_torch.kernels import common
 
     ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
-        [common.nvcc(), *common.NVCC_FLAGS,
-         f"-DNBODY_MIN_BLOCKS={NBODY_VARIANT_BLOCKS}", "-o",
-         str(nbody_variant_path()), str(common.CSRC_DIR / "nbody.cu")],
+        [common.nvcc(), *common.NVCC_FLAGS, flag, "-o", str(path),
+         str(common.CSRC_DIR / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the nbody variant "
+        raise RuntimeError(f"nvcc failed on {source} {flag} "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     return proc.stdout
+
+
+def spills(report: str) -> Dict[str, int]:
+    """Spill-store bytes of each kernel in an ``-Xptxas -v`` report, by
+    (mangled) kernel name."""
+    out, kernel = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "spill stores" in line and kernel is not None:
+            out[kernel] = int(line.split("bytes spill stores")[0]
+                              .split(",")[-1])
+    return out
 
 
 def phase_build():
@@ -338,13 +391,14 @@ def phase_build():
 
     sources = sorted(p.name for p in common.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
-        variant = pool.submit(build_nbody_variant)
+    with concurrent.futures.ThreadPoolExecutor(
+            len(sources) + len(VARIANTS)) as pool:
+        variants = [pool.submit(build_variant, *v) for v in VARIANTS]
         reports = list(pool.map(common.build, sources))
-        reports.append(variant.result())
-    names = sources + [f"nbody.cu -DNBODY_MIN_BLOCKS={NBODY_VARIANT_BLOCKS}"]
+        reports += [v.result() for v in variants]
+    names = sources + [f"{src} {flag}" for src, flag, _ in VARIANTS]
     paths = [common.library_path(src) for src in sources]
-    paths.append(nbody_variant_path())
+    paths += [path for _, _, path in VARIANTS]
     for src, path, report in zip(names, paths, reports):
         log(f"[build] {src} -> {path.name}")
         for line in report.splitlines():
@@ -352,6 +406,13 @@ def phase_build():
                                        "spill", "smem")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s")
+    spill = {name: sum(spills(report).values())
+             for name, report in zip(names, reports)}
+    log(f"[build] spill-store bytes by library: {spill}")
+    for src in NO_SPILL_SOURCES:
+        if spill[src]:
+            raise AssertionError(f"{src} spills: "
+                                 f"{spills(reports[names.index(src)])}")
     # tensor-core products in each library's SASS (HMMA: mma.sync)
     hmma = {src: common.count_sass(src, "HMMA") for src in sources}
     log(f"[build] HMMA instructions by library: {hmma}")
@@ -372,7 +433,7 @@ def phase_build():
                   for name, fn in kernels.items()}
     for name, counts in nbody_sass.items():
         log(f"[build] nbody.cu SASS instructions, {name}: {counts}")
-    return hmma, nbody_sass
+    return hmma, nbody_sass, spill
 
 
 def _rel_err(out, ref) -> Tuple[float, float]:
@@ -737,6 +798,166 @@ def phase_exact_hit(target, models, hw):
             "transfer_consulted": len(consulted)}
 
 
+def _warm_tier(result, own_key: str) -> str:
+    """Which tier of the store's warm-start ladder a fleet job started
+    from: its own key, the same bucket on other hardware, the same hardware
+    on another bucket, the same space, a compatible space, or none."""
+    if result.transfer_from is not None:
+        return f"transfer from {result.transfer_from}"
+    if not result.warm_started:
+        return "cold"
+    kind, space, bucket, hw = result.warm_from.split("|")
+    _, _, own_bucket, own_hw = own_key.split("|")
+    if result.warm_from == own_key:
+        tier = "exact"
+    elif bucket == own_bucket:
+        tier = "same bucket, other hardware"
+    elif hw == own_hw:
+        tier = "same hardware, other bucket"
+    else:
+        tier = "same space"
+    return f"{tier} ({result.warm_from})"
+
+
+def phase_fleet(records, main_paths, hw, device):
+    """The fleet measuring on the card, through the CLI's entry points
+    (``job_from_registry(..., device=)``, ``SubprocessWorkerPool(devices=)``,
+    ``FleetTuner``, ``ConfigStore``): round 1, one cold random job (budget
+    25) at each kernel's train input; round 2, one job at each swept input
+    with no searcher named, so that each warm-starts from round 1's
+    published artifacts.  The lane is a process of its own on the card;
+    this process launches nothing meanwhile (its launch counts are zeroed
+    before and must still be 0 after).  Each job's trials until a test
+    came within 1.1x of its input's exhaustive record (phase 4) stand
+    beside the replay's medians for that record (phase 6).  Raises on an
+    infinite best, a lane on another card, a kernel the lane never
+    launched, or a round-2 job whose space has an artifact that did not
+    warm-start."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.fleet import (FleetTuner, SubprocessWorkerPool,
+                                   job_from_registry)
+    from repro_torch.kernels.registry import BENCHMARKS
+    from repro_torch.tuning import ConfigStore, store_key
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    card = torch.cuda.get_device_name(device)
+    out = {"device": FLEET_DEVICE, "budget": TUNE_BUDGET, "rounds": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ConfigStore(str(Path(tmp) / "fleet_store.json"))
+        pool = SubprocessWorkerPool(devices=[FLEET_DEVICE])
+        try:
+            log(f"[fleet] pool of {pool.workers} lane(s) up in "
+                f"{time.perf_counter() - t0:.1f} s: {pool.lane_info()}")
+            rounds = (
+                ("round 1 (cold)", [(p.name, p.train, "random")
+                                    for p in PORTS]),
+                ("round 2 (warm)", [(p.name, tag, None) for p in PORTS
+                                    for tag in p.sweeps]))
+            for label, specs in rounds:
+                spaces_with_models = {split[1] for split in (
+                    k.split("|") for k in store.model_keys())}
+                jobs = [job_from_registry(k, tag, hw, budget=TUNE_BUDGET,
+                                          searcher=searcher,
+                                          device=FLEET_DEVICE)
+                        for k, tag, searcher in specs]
+                t1 = time.perf_counter()
+                report = FleetTuner(jobs, pool, store=store).run()
+                seconds = time.perf_counter() - t1
+                rows = []
+                for (kernel, tag, _), job, r in zip(specs, jobs,
+                                                    report.results):
+                    bench = BENCHMARKS[kernel]
+                    inp = bench.inputs[tag]
+                    rec = records[kernel].get(tag)
+                    well = (r.trials_to_threshold(WELL_FACTOR
+                                                  * rec.best_runtime)
+                            if rec is not None else None)
+                    replay = main_paths[kernel]["replay"].get(inp.tag)
+                    own = store_key(job.space.name, tag, job.hardware_key,
+                                    kind=job.kind)
+                    row = {
+                        "job": r.job, "searcher": r.searcher,
+                        "warm_started": r.warm_started,
+                        "tier": _warm_tier(r, own), "trials": r.trials,
+                        "failures": r.failures, "known_bad": r.known_bad,
+                        "best_config": r.best_config,
+                        "best_ms": r.best_runtime * 1e3,
+                        "record_best_ms": (rec.best_runtime * 1e3
+                                           if rec is not None else None),
+                        "trials_to_well": well,
+                        "replay_median_trials_to_well": (
+                            {n: replay[n]["median_trials_to_well"]
+                             for n in ("profile", "random")}
+                            if replay is not None else None),
+                    }
+                    rows.append(row)
+                    if rec is None:
+                        vs = "no exhaustive record of this input"
+                    else:
+                        vs = (f"within {WELL_FACTOR}x of the record's "
+                              f"{row['record_best_ms']:.4f} ms at trial "
+                              + (str(well) if well is not None
+                                 else f"> {r.trials} (not reached)")
+                              + f"; replay medians profile "
+                              f"{row['replay_median_trials_to_well']['profile']}"
+                              f", random "
+                              f"{row['replay_median_trials_to_well']['random']}")
+                    log(f"[fleet] {label} {r.job}: {r.searcher}, "
+                        f"{row['tier']}; {r.trials} trials, best "
+                        f"{r.best_config} {row['best_ms']:.4f} ms; {vs}")
+                    if not math.isfinite(r.best_runtime):
+                        raise AssertionError(f"fleet job {r.job} ended with "
+                                             f"an infinite best")
+                    if (label.startswith("round 2")
+                            and job.space.name in spaces_with_models
+                            and not r.warm_started):
+                        raise AssertionError(
+                            f"fleet job {r.job} did not warm-start although "
+                            f"its space {job.space.name} has an artifact")
+                log(f"[fleet] {label}: {len(jobs)} jobs, pool clock "
+                    f"{report.elapsed:.2f} s, busy {report.busy:.2f} "
+                    f"worker-seconds, {report.failures} failed attempts, "
+                    f"{seconds:.1f} s")
+                out["rounds"].append({
+                    "round": label, "jobs": rows,
+                    "pool_elapsed_s": report.elapsed,
+                    "busy_s": report.busy, "failures": report.failures,
+                    "host_s": seconds})
+            lanes = pool.lane_info()
+        finally:
+            pool.close()
+        out["store_entries"] = len(store)
+        out["store_models"] = sum(1 for _ in store.model_keys())
+    asked = {p.name for p in PORTS}
+    for lane in lanes:
+        log(f"[fleet] lane {lane['lane']} on {lane['device']}: card "
+            f"{lane['device_name']}; launches {lane['launches']}")
+        if lane["device_name"] != card:
+            raise AssertionError(f"the fleet lane reports card "
+                                 f"{lane['device_name']!r}, not {card!r}")
+        silent = sorted(k for k in asked if lane["launches"].get(k, 0) <= 0)
+        if silent:
+            raise AssertionError(f"the fleet lane never launched {silent}: "
+                                 f"{lane['launches']}")
+    parent = {name: w.launches for name, w in wrappers.items()}
+    if any(parent.values()):
+        raise AssertionError(f"this process launched kernels while the lane "
+                             f"measured: {parent}")
+    out["lanes"] = lanes
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[time] fleet {out['seconds']:.1f} s")
+    return out
+
+
 def bound(port: Port, inp, hw):
     """The least time the card could take: the larger of the bytes the
     function must move over the memory rate and its operations over the
@@ -987,6 +1208,14 @@ def main() -> int:
     from repro_torch.kernels.registry import BENCHMARKS
 
     t_start = time.perf_counter()
+    from repro_torch.kernels.attention.kernel import HEAD_DIMS
+
+    missing = sorted(set(HEAD_DIMS) - set(ATTENTION_CHECK_DIMS))
+    if missing:
+        print(f"chip_smoke: ATTENTION_CHECK_DIMS misses the compiled head "
+              f"dims {missing}", file=sys.stderr)
+        return 2
+
     # phase 1: device
     device = resolve_device()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -998,7 +1227,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 2: build, and the tensor cores' rate through mma.sync
-    hmma, nbody_sass = phase_build()
+    hmma, nbody_sass, spill = phase_build()
     probe = phase_probe(hw, device)
 
     # phases 3-6, kernel by kernel
@@ -1016,7 +1245,12 @@ def main() -> int:
     exact = phase_exact_hit(TRANSFER_TARGETS[0], models, hw)
     log(f"[time] transfer {time.perf_counter() - t0:.1f} s")
 
-    # phase 8: report
+    # phase 8: the fleet on the card
+    fleet = phase_fleet(records, {p.name: r[1]["main_path"]
+                                  for p, r in zip(PORTS, results)},
+                        hw, device)
+
+    # phase 9: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
@@ -1058,8 +1292,9 @@ def main() -> int:
     report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
-              "transfer": transfer, "exact_hit": exact,
+              "transfer": transfer, "exact_hit": exact, "fleet": fleet,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
+              "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,
               "nbody_variants": variants}
     log(f"[time] report {time.perf_counter() - t0:.1f} s")

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import threading
 import time
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
@@ -183,6 +184,18 @@ class FunctionEvaluator(Evaluator):
 # cache (50 MB on the H100) holding none of its operands.
 L2_FLUSH_BYTES = 128 * 2**20
 
+# One timed window a card at a time: the CUDA events of a test bracket
+# everything queued on the card between them, so two threads timing on one
+# card would each count the other's flushes and launches.
+_DEVICE_LOCKS: Dict[str, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device: torch.device) -> threading.Lock:
+    """The lock that serializes timed measurements on ``device``."""
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(str(device), threading.Lock())
+
 
 class DeviceKernelEvaluator(Evaluator):
     """Live evaluator on the card: launch a registry kernel and time it.
@@ -212,6 +225,7 @@ class DeviceKernelEvaluator(Evaluator):
         if reps < 1 or warmup < 0:
             raise ValueError(f"need reps >= 1 and warmup >= 0, got "
                              f"{reps}, {warmup}")
+        bench.check_input(inp)
         self.device = resolve_device(device)
         self.bench = bench
         self.inp = inp
@@ -236,6 +250,10 @@ class DeviceKernelEvaluator(Evaluator):
         self.measured: Dict[int, CounterSet] = {}
 
     def _time(self, cfg: Config) -> float:
+        with device_lock(self.device):
+            return self._time_alone(cfg)
+
+    def _time_alone(self, cfg: Config) -> float:
         run, args = self.bench.run, self.args
         for _ in range(self.warmup):
             run(cfg, *args)

@@ -22,7 +22,8 @@ evaluator measures runtimes and never uses it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import re
+from typing import Dict, Optional, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +95,81 @@ H100_PCIE = HardwareSpec(
 )
 
 SPECS: Dict[str, HardwareSpec] = {s.name: s for s in (H100_SXM, H100_PCIE)}
+
+
+def _squash(name: str) -> str:
+    """Alphanumeric-only lowercase form used for drift-tolerant matching."""
+    return re.sub(r"[^a-z0-9]", "", str(name).lower())
+
+
+_NORMALIZE_CACHE: Dict[str, str] = {}
+
+
+def normalize_name(name: str) -> str:
+    """Canonical hardware-name string, stable under naming drift.
+
+    Resolves to a registered spec's name whenever the alphanumeric forms
+    match ("H100-SXM", "H100_SXM", "h100sxm" → "h100_sxm"); otherwise
+    returns a lower_snake_case normalization of the given name, so even
+    unregistered hardware gets a deterministic identity.  Memoized: a
+    fleet normalizes the same few names for every test.
+    """
+    cached = _NORMALIZE_CACHE.get(name) if isinstance(name, str) else None
+    if cached is not None:
+        return cached
+    sq = _squash(name)
+    norm = None
+    for canon in SPECS:
+        if _squash(canon) == sq:
+            norm = canon
+            break
+    if norm is None:
+        norm = re.sub(r"[^a-z0-9]+", "_",
+                      str(name).strip().lower()).strip("_") or "unknown"
+    if isinstance(name, str) and len(_NORMALIZE_CACHE) < 4096:
+        _NORMALIZE_CACHE[name] = norm
+    return norm
+
+
+def get(name: str) -> HardwareSpec:
+    """Spec by name, tolerating naming drift via ``normalize_name``.
+
+    Raises ``KeyError`` (with the registered names) only when even the
+    normalized form is unknown.
+    """
+    if name in SPECS:
+        return SPECS[name]
+    canon = normalize_name(name)
+    if canon in SPECS:
+        return SPECS[canon]
+    raise KeyError(
+        f"unknown hardware {name!r} (normalized: {canon!r}); "
+        f"registered: {sorted(SPECS)}")
+
+
+def fingerprint(spec: HardwareSpec) -> str:
+    """Stable identity for hardware outside the registry: the normalized
+    name plus the declared fp32 rate and device-memory bandwidth — two
+    machines that agree on all three are the same tuning target for the
+    cost model's purposes."""
+    return (f"{normalize_name(spec.name)}"
+            f"-{spec.fp32_flops / 1e12:.0f}tf-{spec.dram_bw / 1e9:.0f}gbs")
+
+
+def hardware_key(hw: Union[str, HardwareSpec]) -> str:
+    """Canonical ``ConfigStore`` hardware key.
+
+    Registered hardware (by spec or any naming-drift variant of its name)
+    maps to the registry name, so "h100_sxm" and "H100-SXM" share store
+    entries; unregistered specs fall back to their ``fingerprint`` and
+    unregistered name strings to their normalized form.
+    """
+    if isinstance(hw, HardwareSpec):
+        canon = normalize_name(hw.name)
+        # normalize_name resolves to a registry name exactly when the
+        # squashed forms match, so this is the registered/unregistered test
+        return canon if canon in SPECS else fingerprint(hw)
+    return normalize_name(hw)
 
 
 def spec_for_device_name(device_name: str) -> HardwareSpec:

@@ -76,8 +76,22 @@
 //               loads the next K and V into a second stage while the current
 //               ones are used (at D = 128 the second stage leaves room for
 //               one block an SM instead of two).
-// Every parameter changes the code path; none is priced only.  D is a
-// template (64 or 128); KEEP_P and Q_PREFETCH too.
+// Every parameter changes the code path; none is priced only.  KEEP_P and
+// Q_PREFETCH are templates.
+//
+// Head dims.  D is a template too, compiled at 16, 32, 64, 80, 128, 192 and
+// 256 (the C entry's switch; mma.sync.m16n8k8 reads D in steps of 8).  The
+// wrapper zero-pads any other D up to 256 to the next compiled one and
+// slices the padding off the output: zero columns of Q and K add nothing to a score,
+// zero columns of V give zero output columns, and sm_scale stays 1/sqrt of
+// the caller's D.  Up to D = 128 a warp owns two m16 tiles (a 128-row query
+// sub-tile).  Above 128 a warp owns one (kMT = 1, a 64-row sub-tile): at
+// D = 256 two m16 tiles would hold 256 accumulator floats a thread, and the
+// shared tile (D + 4) x (128 + 2 kStages 32) fp32 would take 266 KB at two
+// stages, beyond the 227 KB a block can use; with one m16 tile they take
+// 128 floats and 195 KB.  So every configuration of the space launches at
+// every compiled D.  Registers and spills at each D: PERF.md, section 6,
+// from the ptxas report chip_smoke.py prints.
 //
 // Entry: repro_attention_f32 (plain C, loaded with ctypes).  It launches on
 // the given stream, does not synchronise, and returns cudaGetLastError().
@@ -90,12 +104,16 @@
 namespace {
 
 constexpr int kBlockUnit = 64;           // BLOCK_Q and BLOCK_K are multiples
-constexpr int kMT = 2;                   // m16 tiles (32 query rows) a warp
 constexpr int kWarps = 4;
-constexpr int kSub = 16 * kMT * kWarps;  // 128 query rows a sub-tile
 constexpr int kKeys = 32;                // key rows of a K or V sub-tile
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
+
+// m16 tiles a warp owns at head dim D, and the query rows of a sub-tile
+__host__ __device__ constexpr int m_tiles(int d) { return d > 128 ? 1 : 2; }
+__host__ __device__ constexpr int sub_rows(int d) {
+  return 16 * m_tiles(d) * kWarps;
+}
 
 // Rows [row0, row0 + rows) of one (S, D) head into a [rows][D + 4] tile;
 // rows at or past S are zero-filled.
@@ -130,7 +148,7 @@ __device__ __forceinline__ float sum4(float v) {
 // at or past S and (when causal) keys after the row set to NEG_INF.
 // Element e of n8 tile j of m16 tile i is row row0 + 16 i + 8 (e / 2), key
 // kv0 + 8 j + 2 t + e % 2.
-template <bool kMask>
+template <bool kMask, int kMT>
 __device__ __forceinline__ void scale_and_mask(float (&s)[kMT][kKeys / 8][4],
                                                int kv0, int row0, int t,
                                                int S, int causal,
@@ -153,7 +171,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, int S,
                     int block_q, int block_k, int causal, float sm_scale) {
-  constexpr int kLd = D + 4;             // row stride, 4 mod 32
+  constexpr int kMT = m_tiles(D);
+  constexpr int kSub = sub_rows(D);
+  constexpr int kLd = D + 4;             // row stride: fragment reads hit
+                                         // 32 distinct banks at every D
   constexpr int kTileKV = kKeys * kLd;
   constexpr int kNS = kKeys / 8;         // n8 tiles of scores a warp
   constexpr int kNO = D / 8;             // n8 tiles of output a warp
@@ -260,9 +281,9 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool whole = kv0 + kKeys <= S &&
                          (!causal || kv0 + kKeys - 1 <= row0 - g);
       if (whole)
-        scale_and_mask<false>(s, kv0, row0, t, S, causal, sm_scale);
+        scale_and_mask<false, kMT>(s, kv0, row0, t, S, causal, sm_scale);
       else
-        scale_and_mask<true>(s, kv0, row0, t, S, causal, sm_scale);
+        scale_and_mask<true, kMT>(s, kv0, row0, t, S, causal, sm_scale);
 
       // online softmax
 #pragma unroll
@@ -353,7 +374,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int bh,
            int s, int block_q, int block_k, int causal, float sm_scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (D + 4) *
-                      (static_cast<size_t>(kSub) + 2 * kStages * kKeys);
+                      (static_cast<size_t>(sub_rows(D)) + 2 * kStages * kKeys);
   auto kernel = flash_tf32x3_kernel<D, kKeepP, kStages>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -383,8 +404,10 @@ int dispatch(const float* q, const float* k, const float* v, float* o,
 
 }  // namespace
 
-// q, k, v, o: (bh, s, d) fp32, contiguous, 16-byte aligned; d is 64 or 128;
-// block_q and block_k are multiples of 64.  Returns a cudaError_t as int.
+// q, k, v, o: (bh, s, d) fp32, contiguous, 16-byte aligned; d is one of the
+// compiled head dims (16, 32, 64, 80, 128, 192, 256: the wrapper pads any
+// other); block_q and block_k are multiples of 64.  Returns a cudaError_t as
+// int.
 extern "C" int repro_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int bh, int s,
                                    int d, int block_q, int block_k,
@@ -398,14 +421,20 @@ extern "C" int repro_attention_f32(const float* q, const float* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ATTENTION_D(D)                                             \
+  case D:                                                                \
+    return dispatch<D>(q, k, v, o, bh, s, block_q, block_k, keep_p,      \
+                       q_prefetch, causal, sm_scale, st);
   switch (d) {
-    case 64:
-      return dispatch<64>(q, k, v, o, bh, s, block_q, block_k, keep_p,
-                          q_prefetch, causal, sm_scale, st);
-    case 128:
-      return dispatch<128>(q, k, v, o, bh, s, block_q, block_k, keep_p,
-                           q_prefetch, causal, sm_scale, st);
+    REPRO_ATTENTION_D(16)
+    REPRO_ATTENTION_D(32)
+    REPRO_ATTENTION_D(64)
+    REPRO_ATTENTION_D(80)
+    REPRO_ATTENTION_D(128)
+    REPRO_ATTENTION_D(192)
+    REPRO_ATTENTION_D(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_ATTENTION_D
 }

@@ -29,8 +29,8 @@
 //     lies wholly outside is one 16-byte zero fill (src-size 0); the rest,
 //     the chunks of unaligned rows and those across the image's edge, take
 //     four 4-byte copies, each zero-filled outside (`load_halo`).
-//   - Register-blocked taps (UNROLL_TAPS = 1): each thread owns 8 rows x 4
-//     contiguous columns of outputs.  It reads each of its 8 + F - 1 halo
+//   - Register-blocked taps (UNROLL_TAPS = 1, F <= 13): each thread owns
+//     8 rows x 4 contiguous columns of outputs.  It reads each of its 8 + F - 1 halo
 //     rows once, as three 16-byte words (one at F = 1) at 16-byte offsets,
 //     conflict-free across the warp, and sums every tap that row feeds from
 //     registers: 36 reads for 32 outputs at F = 5, about 4.5 words an
@@ -46,8 +46,20 @@
 //   BY, BX         set the tile of one block, hence the grid size and how
 //                  many sub-tiles a block walks (BY < 32 leaves thread rows
 //                  idle, and fewer halo rows are copied);
-//   UNROLL_TAPS=1  a template on F (1, 3, 5, 7): register-blocked taps; 0
-//                  the run-time tap loop;
+//   UNROLL_TAPS=1  a template on F: register-blocked taps, compiled for
+//                  F = 1, 3, ..., 13 (the C entry's switch); 0 the run-time
+//                  tap loop.  The register-blocked kernel holds a row of
+//                  4 + F - 1 words, 32 accumulators and, with the filter in
+//                  device memory, F * F weights in registers, and its code
+//                  grows with F * F, so it is compiled only where ptxas
+//                  reports no spill: F = 15 spills in the constant-filter
+//                  kernel (chip_smoke.py builds a probe with
+//                  -DREPRO_CONV2D_PROBE_F=15 and prints its report; PERF.md,
+//                  section 6).  For a larger odd F (up to 31) the
+//                  C entry lowers UNROLL_TAPS = 1 to the looped kernel: there
+//                  the two values of UNROLL_TAPS are one code path under two
+//                  configurations of the space and the model (the wrapper's
+//                  `taps_kernel` says which kernel runs);
 //   FILTER_SMEM=1  the filter in __constant__ memory, copied there on the
 //                  stream before the launch (on the TPU "SMEM" is scalar
 //                  memory, whose counterpart is the constant cache) and read
@@ -319,23 +331,26 @@ extern "C" int repro_conv2d_f32(const float* img, const float* flt,
   const int wide_out = reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const unsigned g = static_cast<unsigned>(grid);
   cudaError_t err;
-  if (!unroll_taps) {
-    err = launch<0>(const_filter, g, smem, s, img, flt, out, h, w, f, by, bx,
-                    tiles_x, dma_depth, wide_in, wide_out);
-  } else if (f == 1) {
-    err = launch<1>(const_filter, g, smem, s, img, flt, out, h, w, f, by, bx,
-                    tiles_x, dma_depth, wide_in, wide_out);
-  } else if (f == 3) {
-    err = launch<3>(const_filter, g, smem, s, img, flt, out, h, w, f, by, bx,
-                    tiles_x, dma_depth, wide_in, wide_out);
-  } else if (f == 5) {
-    err = launch<5>(const_filter, g, smem, s, img, flt, out, h, w, f, by, bx,
-                    tiles_x, dma_depth, wide_in, wide_out);
-  } else if (f == 7) {
-    err = launch<7>(const_filter, g, smem, s, img, flt, out, h, w, f, by, bx,
-                    tiles_x, dma_depth, wide_in, wide_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_CONV2D_F(F)                                                  \
+  case F:                                                                  \
+    err = launch<F>(const_filter, g, smem, s, img, flt, out, h, w, f, by,  \
+                    bx, tiles_x, dma_depth, wide_in, wide_out);            \
+    break;
+  switch (unroll_taps ? f : 0) {
+    REPRO_CONV2D_F(1)
+    REPRO_CONV2D_F(3)
+    REPRO_CONV2D_F(5)
+    REPRO_CONV2D_F(7)
+    REPRO_CONV2D_F(9)
+    REPRO_CONV2D_F(11)
+    REPRO_CONV2D_F(13)
+#ifdef REPRO_CONV2D_PROBE_F   // one more F, built only to read ptxas's report
+    REPRO_CONV2D_F(REPRO_CONV2D_PROBE_F)
+#endif
+    default:   // looped taps; UNROLL_TAPS = 1 above the compiled F lowers here
+      err = launch<0>(const_filter, g, smem, s, img, flt, out, h, w, f, by,
+                      bx, tiles_x, dma_depth, wide_in, wide_out);
   }
+#undef REPRO_CONV2D_F
   return static_cast<int>(err);
 }

@@ -18,6 +18,13 @@ works per query sub-tile), KEEP_P (p kept in registers or computed again
 for the PV product) and Q_PREFETCH (one or two cp.async stages for K and
 V).
 
+The kernel is compiled at the head dims ``HEAD_DIMS``; any other D up to
+``MAX_HEAD_DIM`` is zero-padded to the next of them (``padded_head_dim``)
+and the padding sliced off the output, with the scale 1/√D of the caller's
+D.  Above D = 128 a warp owns one m16 tile instead of two (a 64-row query
+sub-tile), so that the accumulators and the shared tiles of every
+configuration fit at D = 256.
+
 ``flash_attention`` launches the kernel for CUDA tensors and raises when the
 build or the launch fails; it takes ``flash_attention_plain`` only for
 tensors on the CPU.
@@ -35,7 +42,8 @@ from repro_torch.kernels.common import entry, launch
 
 SOURCE = "attention.cu"
 SUB = 64                     # BLOCK_Q and BLOCK_K are multiples of it
-HEAD_DIMS = (64, 128)        # compiled head dimensions
+HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)   # compiled head dimensions
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 MAX_BLOCK = 1024             # largest BLOCK_Q / BLOCK_K (the space's)
 MAX_Q_BLOCKS = 65535         # the grid's y extent
 NEG_INF = -1e30
@@ -68,9 +76,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
                          f"{tuple(v.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got "
-                         f"{q.shape[3]}")
+    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}] (the "
+                         f"largest compiled head dim), got {q.shape[3]}")
     for name, b in (("block_q", block_q), ("block_k", block_k)):
         if not (SUB <= b <= MAX_BLOCK and b % SUB == 0):
             raise ValueError(f"{name} must be a multiple of {SUB} in "
@@ -79,8 +87,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
         raise ValueError(f"keep_p must be 0 or 1, got {keep_p}")
     if q_prefetch not in (1, 2):
         raise ValueError(f"q_prefetch must be 1 or 2, got {q_prefetch}")
-    if q.numel() > _INT_MAX:
-        raise ValueError("flash_attention takes fewer than 2**31 elements")
+    if q.numel() // max(q.shape[3], 1) * padded_head_dim(q.shape[3]) \
+            > _INT_MAX:
+        raise ValueError("flash_attention takes fewer than 2**31 elements "
+                         "(the head dim padded)")
+
+
+def padded_head_dim(d: int) -> int:
+    """The compiled head dim the kernel runs a head of dim ``d`` at: the
+    least of ``HEAD_DIMS`` at or above it."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}], got {d}")
+    return next(h for h in HEAD_DIMS if h >= d)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,7 +135,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_prefetch: int = 1, causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """(B, H, S, D) attention of fp32 ``q``, ``k``, ``v`` with the
-    parameters of the attention space; D is 64 or 128."""
+    parameters of the attention space; D is any of 1 to ``MAX_HEAD_DIM``
+    (on the card, padded to ``padded_head_dim(D)``)."""
     _check(q, k, v, block_q, block_k, keep_p, q_prefetch)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
@@ -125,18 +144,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention copies rows in 16-byte chunks: "
-                         "the storage of q, k and v must be 16-byte aligned")
     b, h, s, d = q.shape
     if -(-s // block_q) > MAX_Q_BLOCKS:
         raise ValueError(f"S / block_q must be at most {MAX_Q_BLOCKS}")
     scale = 1.0 / (d ** 0.5) if sm_scale is None else float(sm_scale)
+    dp = padded_head_dim(d)
+    if dp != d:
+        # zero columns change no score and give zero output columns
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention copies rows in 16-byte chunks: "
+                         "the storage of q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return out[..., :d]
     rc = launch(_entry(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b * h, s, d, block_q, block_k, keep_p,
+                out.data_ptr(), b * h, s, dp, block_q, block_k, keep_p,
                 q_prefetch, int(bool(causal)), scale)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -144,7 +167,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{(block_q, block_k)}, keep_p={keep_p}, "
                            f"q_prefetch={q_prefetch}")
     flash_attention.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0

@@ -1,7 +1,8 @@
 import numpy as np
 import torch
 
-from repro_torch.kernels.conv2d.kernel import conv2d, conv2d_plain
+from repro_torch.kernels.conv2d.kernel import (check_filter_size, conv2d,
+                                               conv2d_plain)
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.conv2d.space import (DEFAULT_INPUT, ConvInput,
                                               make_space, workload_fn)
@@ -26,4 +27,5 @@ def _benchmark() -> KernelBenchmark:
         default_input=space.DEFAULT_INPUT,
         inputs={"4096": space.DEFAULT_INPUT},
         make_args=_make_args, run=ops.run, ref=conv2d_ref,
+        validate_input=lambda inp: check_filter_size(inp.f),
     )

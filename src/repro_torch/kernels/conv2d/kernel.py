@@ -18,7 +18,10 @@ chunks across the image's edges and of unaligned rows four 4-byte ones.  BY
 and BX set the tile of one block; UNROLL_TAPS=1 takes register-blocked
 taps compiled for F in ``UNROLLED_F`` (each thread reads its 8 x 4
 outputs' window once, as 16-byte words, and sums the taps from
-registers), 0 loops over the taps at run time; FILTER_SMEM=1 reads the
+registers), 0 loops over the taps at run time; for an odd F above
+``UNROLLED_F`` and up to ``MAX_F`` the C entry lowers UNROLL_TAPS=1 to the
+looped kernel (``taps_kernel``), so that every configuration of the space
+runs at every F the kernel takes; FILTER_SMEM=1 reads the
 filter from ``__constant__`` memory (on the TPU "SMEM" is scalar memory,
 the constant cache's counterpart), 0 from device memory, staged by each
 block; DMA_DEPTH is the number of ring stages.
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.common import entry, launch
 
 SOURCE = "conv2d.cu"
-UNROLLED_F = (1, 3, 5, 7)      # filter sizes compiled with unrolled taps
+UNROLLED_F = (1, 3, 5, 7, 9, 11, 13)   # F compiled with unrolled taps
 MAX_F = 31                     # 4 halo stages + filter within 227 KB
 MAX_DMA_DEPTH = 4              # stages of the halo ring
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -49,6 +52,20 @@ def _entry():
     return entry(SOURCE, "repro_conv2d_f32", _ARGTYPES)
 
 
+def check_filter_size(f: int) -> None:
+    """Raise unless the kernel takes an F x F filter: odd, at most
+    ``MAX_F``."""
+    if f < 1 or f % 2 != 1 or f > MAX_F:
+        raise ValueError(f"conv2d takes an odd F x F filter with F <= "
+                         f"{MAX_F}, got F={f}")
+
+
+def taps_kernel(f: int, unroll_taps: int) -> int:
+    """The template of the kernel that runs: F for register-blocked taps,
+    0 for looped ones (UNROLL_TAPS=0, or an F not in ``UNROLLED_F``)."""
+    return f if unroll_taps and f in UNROLLED_F else 0
+
+
 def _check(img: torch.Tensor, flt: torch.Tensor, by: int, bx: int,
            unroll_taps: int, filter_smem: int, dma_depth: int) -> None:
     if img.dtype != torch.float32 or flt.dtype != torch.float32:
@@ -58,9 +75,10 @@ def _check(img: torch.Tensor, flt: torch.Tensor, by: int, bx: int,
         raise ValueError(f"conv2d takes an (H, W) image, got "
                          f"{tuple(img.shape)}")
     f = flt.shape[0] if flt.dim() == 2 else -1
-    if flt.shape != (f, f) or f % 2 != 1 or f > MAX_F:
-        raise ValueError(f"conv2d takes an odd F x F filter with F <= "
-                         f"{MAX_F}, got {tuple(flt.shape)}")
+    if flt.shape != (f, f):
+        raise ValueError(f"conv2d takes an F x F filter, got "
+                         f"{tuple(flt.shape)}")
+    check_filter_size(f)
     if img.device != flt.device:
         raise ValueError(f"operands on {img.device} and {flt.device}")
     if not (img.is_contiguous() and flt.is_contiguous()):
@@ -73,9 +91,6 @@ def _check(img: torch.Tensor, flt: torch.Tensor, by: int, bx: int,
     if not 1 <= dma_depth <= MAX_DMA_DEPTH:
         raise ValueError(f"dma_depth must be in [1, {MAX_DMA_DEPTH}], got "
                          f"{dma_depth!r}")
-    if unroll_taps and f not in UNROLLED_F:
-        raise ValueError(f"unrolled taps are compiled for F in {UNROLLED_F}, "
-                         f"got F={f}; pass unroll_taps=0")
     if img.numel() > _INT_MAX:
         raise ValueError("conv2d images must hold fewer than 2**31 elements")
 

@@ -20,7 +20,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import pkgutil
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
+                    Tuple)
 
 from repro_torch.core.tuning_space import Config, TuningSpace
 
@@ -35,8 +36,18 @@ class KernelBenchmark:
     make_args: Callable[[Any, Any, Any], Tuple]   # make_args(inp, rng, device)
     run: Callable[..., Any]       # run(cfg, *args)
     ref: Callable[..., Any]       # ref(*args)
+    # inp -> None, raising for an input no configuration of the space can
+    # run; called before a tune's first test (``check_input``)
+    validate_input: Optional[Callable[[Any], None]] = None
     _space: TuningSpace = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+
+    def check_input(self, inp: Any) -> None:
+        """Raise (``ValueError``) for an input the kernel refuses at every
+        configuration, so that a tune fails before its first test and not
+        partway through a sweep."""
+        if self.validate_input is not None:
+            self.validate_input(inp)
 
     def space(self) -> TuningSpace:
         """Memoized ``make_space()`` (read-only; call ``make_space()`` for a

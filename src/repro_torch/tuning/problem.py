@@ -12,8 +12,8 @@ package's module carried over, with one problem kind so far:
   port's hand-written Hopper kernels on one named registry input.
 
 The ``sharding`` (train-step layouts) and ``serve`` (serving wave
-geometry) kinds, and the fleet that schedules problems, wait for later
-slices of the port (ROADMAP.md).
+geometry) kinds wait for later slices of the port (ROADMAP.md).  The
+fleet (``repro_torch.fleet``) schedules problems of the kinds there are.
 
 A problem also names its identity in the persistent ``ConfigStore``:
 ``kind`` is the key namespace (``kind|space|bucket|hardware``) and
@@ -152,11 +152,12 @@ def list_problems(kind: Optional[str] = None) -> List[str]:
 class KernelProblem(TuningProblem):
     """A registered Hopper kernel benchmark on one named input.
 
-    ``make_evaluator`` returns ``None``, as in the JAX package: there the
-    fleet then prices the workload through the analytic cost model.  The
-    port has no fleet yet; a caller measures on the card with a
-    ``DeviceKernelEvaluator`` on ``BENCHMARKS[problem.kernel]`` and its
-    input ``problem.input_key``.
+    ``make_evaluator`` returns ``None``, as in the JAX package: a fleet
+    job built from the problem with no device prices the workload through
+    the analytic cost model.  A fleet job with a device
+    (``job_from_problem(problem, hw, device="cuda:0")``) measures on it:
+    each test launches ``BENCHMARKS[problem.kernel]`` at input
+    ``problem.input_key`` there and times it (``DeviceKernelEvaluator``).
     """
 
     kind = "kernel"

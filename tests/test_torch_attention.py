@@ -173,12 +173,11 @@ def test_plain_version_takes_the_scale():
 
 def _bad_calls():
     x = torch.zeros((1, 2, 64, 64))
+    y = torch.zeros((1, 2, 64, K.MAX_HEAD_DIM + 1))
     return [
         ("f64", lambda: K.flash_attention(x.double(), x.double(),
                                           x.double())),
-        ("head-dim-32", lambda: K.flash_attention(x[..., :32].contiguous(),
-                                                  x[..., :32].contiguous(),
-                                                  x[..., :32].contiguous())),
+        ("head-dim-257", lambda: K.flash_attention(y, y, y)),
         ("3d", lambda: K.flash_attention(x[0], x[0], x[0])),
         ("strided", lambda: K.flash_attention(x.transpose(2, 3), x, x)),
         ("shapes", lambda: K.flash_attention(x, x[:, :1].contiguous(), x)),

@@ -267,13 +267,37 @@ def test_a_refused_attention_launch_raises(cuda, monkeypatch):
     entry = A._entry()
     assert entry(None, None, None, None, 1, 64, 64, 96, 64, 1, 1, 1, 1.0,
                  None) != 0
-    assert entry(None, None, None, None, 1, 64, 32, 64, 64, 1, 1, 1, 1.0,
+    # a head dim that is not compiled (the wrapper pads it)
+    assert entry(None, None, None, None, 1, 64, 24, 64, 64, 1, 1, 1, 1.0,
                  None) != 0
     monkeypatch.setattr(A, "_entry", lambda: (lambda *args: 1))
     before = A.flash_attention.launches
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         A.flash_attention(*_attention_args((1, 1, 64, 64), cuda))
     assert A.flash_attention.launches == before
+
+
+# every compiled head dim, and padded ones between and below them
+ATTENTION_HEAD_DIMS = list(A.HEAD_DIMS) + [1, 8, 24, 48, 96, 160, 200, 248]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", ATTENTION_HEAD_DIMS)
+def test_attention_takes_every_head_dim(cuda, d):
+    """Every configuration of the space launches at every compiled D (the
+    shared tiles and accumulators fit), and a padded D matches the plain
+    version at the caller's D and scale."""
+    q, k, v = _attention_args((1, 3, 300, d), cuda)
+    ref = A.flash_attention_plain(q, k, v)
+    space = BENCHMARKS["attention"].make_space()
+    configs = (ATTENTION_CONFIGS if d not in A.HEAD_DIMS
+               else [tuple(c.values()) for c in space])
+    for cfg in configs:
+        out = A.flash_attention(q, k, v, **_attention_kw(cfg))
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(out.isfinite().all())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err < ATTENTION_TOL, (cfg, err)
 
 
 @pytest.mark.gpu
@@ -410,7 +434,7 @@ def test_nbody_split_matches_its_plain_version(cuda, n, cfg):
 
 
 # (H, W, F) and configs as (BY, BX, UNROLL_TAPS, FILTER_SMEM, DMA_DEPTH):
-# rows whose W % 4 != 0 (4-byte copies), F = 1 and 7 unrolled, F = 9 looped,
+# rows whose W % 4 != 0 (4-byte copies), F = 1, 7 and 9 unrolled and looped,
 # each DMA_DEPTH with tiles of one sub-tile and of many
 CONV_CASES = [(1000, 1501, 5), (37, 301, 3), (300, 260, 1), (515, 700, 7),
               (200, 333, 9)]
@@ -433,6 +457,28 @@ def test_conv2d_ragged_rows_taps_and_depths(cuda, shape):
         assert bool(out.isfinite().all())
         err = float((out - ref).abs().max() / ref.abs().max())
         assert err < 1e-3, ((by, bx, unroll, fsmem, depth), err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", range(9, CV.MAX_F + 1, 2))
+def test_conv2d_takes_every_odd_filter_size_unrolled(cuda, f):
+    """UNROLL_TAPS = 1 at each odd F from 9 to MAX_F, each filter placement
+    and the deepest ring: register-blocked taps where they are compiled,
+    the looped kernel above, which gives UNROLL_TAPS = 0's bits."""
+    img, flt = BENCHMARKS["conv2d"].make_args(ConvInput(300, 517, f),
+                                              np.random.default_rng(0), cuda)
+    ref = CV.conv2d_plain(img, flt)
+    for fsmem in (0, 1):
+        out = CV.conv2d(img, flt, by=64, bx=256, unroll_taps=1,
+                        filter_smem=fsmem, dma_depth=4)
+        looped = CV.conv2d(img, flt, by=64, bx=256, unroll_taps=0,
+                           filter_smem=fsmem, dma_depth=4)
+        torch.cuda.synchronize()
+        assert bool(out.isfinite().all())
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err < 1e-3, (fsmem, err)
+        if CV.taps_kernel(f, 1) == 0:
+            assert torch.equal(out, looped)
 
 
 @pytest.mark.gpu
@@ -534,3 +580,51 @@ def test_nbody_rsqrt_is_a_lone_mufu(cuda, unroll):
     assert count("MUFU.RSQ") == pairs
     assert count("FFMA") == 6 * pairs and count("FMUL") == 3 * pairs
     assert count("FSETP") == 0
+
+
+# --- the fleet measuring on the card -----------------------------------------
+
+@pytest.mark.gpu
+def test_a_one_lane_fleet_measures_on_the_card(cuda):
+    """A subprocess lane on cuda:0 measures two small jobs: the lane reports
+    this card and launches of both kernels, every test is finite, and the
+    second round warm-starts from the first's artifacts."""
+    from repro_torch.core import hwspec
+    from repro_torch.fleet import (FleetTuner, SubprocessWorkerPool,
+                                   job_from_registry)
+    from repro_torch.tuning import ConfigStore
+
+    hw = hwspec.detect(0)
+    pool = SubprocessWorkerPool(devices=["cuda:0"])
+    store = ConfigStore()
+    try:
+        cold = FleetTuner([job_from_registry(k, i, hw, budget=4,
+                                             searcher="random",
+                                             device="cuda:0")
+                           for k, i in (("matmul", "128"),
+                                        ("nbody", "16k"))],
+                          pool, store=store).run()
+        warm = FleetTuner([job_from_registry("matmul", "2048", None,
+                                             budget=3, device="cuda:0")],
+                          pool, store=store).run()
+        lanes = pool.lane_info()
+    finally:
+        pool.close()
+    for r in cold.results + warm.results:
+        assert r.failures == 0 and np.isfinite(r.best_runtime)
+        assert all(0 < rt < 1.0 for _, rt in r.history)
+    assert warm.results[0].warm_started
+    assert lanes[0]["device_name"] == torch.cuda.get_device_name(0)
+    assert lanes[0]["launches"]["matmul"] > 0
+    assert lanes[0]["launches"]["nbody"] > 0
+
+
+@pytest.mark.gpu
+def test_a_measuring_pool_has_one_lane_a_card(cuda):
+    from repro_torch.fleet import SubprocessWorkerPool
+
+    with pytest.raises(ValueError):
+        SubprocessWorkerPool(devices=["cuda:0", "cuda:0"])
+    with pytest.raises(ValueError):
+        SubprocessWorkerPool(
+            devices=[f"cuda:{torch.cuda.device_count()}"])

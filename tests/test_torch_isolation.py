@@ -49,12 +49,57 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.tuning.session", "repro_torch.tuning.serialize",
                 "repro_torch.tuning.signature", "repro_torch.tuning.store",
                 "repro_torch.tuning.problem",
-                "repro_torch.kernels.registry"} | {
+                "repro_torch.kernels.registry",
+                "repro_torch.fleet", "repro_torch.fleet.job",
+                "repro_torch.fleet.pool", "repro_torch.fleet.tuner",
+                "repro_torch.fleet.worker_main",
+                "repro_torch.launch.fleet", "repro_torch.launch.signals"} | {
         f"repro_torch.kernels.{k}.{part}"
         for k in ("matmul", "transpose", "conv2d", "coulomb", "nbody",
                   "attention")
         for part in ("kernel", "ops", "ref", "space")}
     assert expected <= set(names)
+
+
+# a fleet worker (priced) and the fleet CLI (virtual backend), each run with
+# jax and the JAX package blocked
+_BLOCKED_RUN = r"""
+import importlib, importlib.abc, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__")
+"""
+
+
+def test_the_fleet_worker_and_cli_run_with_jax_and_repro_blocked(tmp_path):
+    req = json.dumps({"uid": 3, "kernel": "conv2d", "input": "4096",
+                      "hw": "h100_sxm", "index": 5, "profile": True})
+    worker = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.fleet.worker_main"],
+        input=json.dumps({"op": "ping"}) + "\n" + req + "\n",
+        capture_output=True, text=True, timeout=300)
+    assert worker.returncode == 0, worker.stderr
+    pong, reply = (json.loads(x) for x in worker.stdout.splitlines())
+    assert pong["op"] == "pong"
+    assert reply["uid"] == 3 and reply["runtime"] > 0 and "ops" in reply
+    out = tmp_path / "fleet.json"
+    cli = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.fleet", "--backend", "virtual", "--kernels",
+         "nbody", "--inputs", "16k", "--budget", "3", "--out", str(out)],
+        capture_output=True, text=True, timeout=300)
+    assert cli.returncode == 0, cli.stderr
+    assert json.loads(out.read_text())["jobs"][0]["trials"] == 3
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

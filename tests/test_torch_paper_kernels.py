@@ -264,8 +264,8 @@ def _bad_calls():
         ("transpose-stage", lambda: T.transpose(x, stage_out=2), ValueError),
         ("conv2d-even", lambda: C.conv2d(img, flt[:4, :4]), ValueError),
         ("conv2d-f64", lambda: C.conv2d(img.double(), flt), TypeError),
-        ("conv2d-unrolled-f9", lambda: C.conv2d(
-            img, torch.zeros((9, 9)), unroll_taps=1), ValueError),
+        ("conv2d-f33", lambda: C.conv2d(
+            img, torch.zeros((33, 33)), unroll_taps=1), ValueError),
         ("conv2d-block", lambda: C.conv2d(img, flt, by=0), ValueError),
         ("coulomb-shape", lambda: Q.coulomb(atoms[:, :3], 8), ValueError),
         ("coulomb-z", lambda: Q.coulomb(atoms, 8, z_it=3), ValueError),

@@ -2,7 +2,8 @@
 """End-to-end check of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
 and nbody (the paper's five benchmarks) and flash attention; then the
-cross-space transfer path of the ``ConfigStore`` on the card.
+cross-space transfer path of the ``ConfigStore``, the fleet and the tuning
+service on the card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -18,7 +19,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              none in matmul or attention failing the phase, and nbody's
              MUFU, FFMA, FMUL, FADD and LDS instructions; beside them a
              variant of ``nbody.cu`` built for 4 blocks an SM instead of 3
-             (timed in phase 9) and a probe of ``conv2d.cu`` with
+             (timed in phase 10) and a probe of ``conv2d.cu`` with
              register-blocked taps at F = 15, built for its report; no
              kernel of attention.cu or conv2d.cu may spill; then the TF32
              rate mma.sync sustains on
@@ -56,7 +57,14 @@ Then, kernel by kernel (the table ``PORTS``):
              It fails on an infinite best, a lane on another card, a kernel
              the lane never launched, or a round-2 job that did not
              warm-start although its space has an artifact.
-9. report  — one JSON line with each kernel's times (best and default
+9. service — the tuning service on the card (``phase_service``):
+             ``python -m repro_torch.launch.daemon`` measuring on cuda:0,
+             two tenants' requests (one coalesced), a store hit, a refused
+             request for the other H100, then a SIGKILL mid-request and a
+             restart with ``--recover`` that finishes it on the card, and
+             a SIGTERM drain.  Each submit's time to its result, trials and
+             each tenant's worker-seconds are printed.
+10. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
              power nvidia-smi reads while it runs), its bound and launches;
@@ -95,13 +103,22 @@ NOT_PORTED = ()                # every TPU kernel of the JAX package is ported
 # each target's sources are every other port: for conv2d these are the
 # SOURCES of the JAX package's transfer benchmark (benchmarks/bench_transfer.py)
 TRANSFER_TARGETS = (("conv2d", "4096"), ("attention", "default"))
-# nbody's design choices timed side by side in phase 9: the blocks an SM its
+# nbody's design choices timed side by side in phase 10: the blocks an SM its
 # variant build is bounded for (the port's is 3), and the waves the j-split
 # aims for (the port's rule takes nbody.SPLIT_WAVES, 8)
 NBODY_VARIANT_BLOCKS = 4
 NBODY_WAVES = (1, 8, 32)
 CONV2D_PROBE_F = 15         # the F past conv2d's compiled unrolled taps
 FLEET_DEVICE = "cuda:0"     # the fleet phase's one lane
+# the service phase: tenant A's two requests (and B's coalesced one), then
+# the request interrupted by a SIGKILL and resumed under --recover; that
+# one's input is not one of A's, which the store would answer with 0 trials
+SERVICE_REQUESTS = (("conv2d", "4096"), ("nbody", "16k"))
+SERVICE_BUDGET = 12
+SERVICE_RESUMED = ("nbody", "131k")
+SERVICE_RESUMED_BUDGET = 25
+SERVICE_FLOOR = 0.9         # a tuned runtime below 0.9x the record's best
+#                             would be a mis-measurement
 # the head dims the check phase holds attention at beside the registry's:
 # every compiled one, and padded ones between them (1 to 256)
 ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
@@ -343,7 +360,7 @@ def nbody_variant_path() -> Path:
 
 # Builds beside the port's, each (source, flag, library): nbody's kernel
 # bounded for 4 blocks of 256 threads an SM (64 registers a thread) where
-# the port's is bounded for 3, timed in phase 9; and conv2d with
+# the port's is bounded for 3, timed in phase 10; and conv2d with
 # register-blocked taps for one F past the compiled ones, built only for
 # ptxas's report (where the unrolled taps start to spill).
 VARIANTS = (
@@ -1145,6 +1162,330 @@ def _extra_report(times: Dict, floor: Optional[Dict]) -> str:
     return out
 
 
+class _Daemon:
+    """``python -m repro_torch.launch.daemon`` in a session of its own (so
+    that a SIGKILL takes its lanes with it), its output read on a thread."""
+
+    def __init__(self, args, timeout: float = 180.0):
+        import os
+        import threading
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(SRC) + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.daemon", *args],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self.lines = []
+        self.stamps = []        # seconds after the start, a line each
+        up = threading.Event()
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                self.stamps.append(time.perf_counter() - t0)
+                if "tuning service on" in line:
+                    up.set()
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        if not up.wait(timeout):
+            self.kill()
+            raise AssertionError("the daemon did not come up:\n"
+                                 + "\n".join(self.lines[-40:]))
+        self.up_s = time.perf_counter() - t0
+        line = next(x for x in self.lines if "tuning service on" in x)
+        self.address = line.split("tuning service on ")[1].split()[0]
+
+    def startup(self) -> str:
+        """The daemon's lines up to its address, each at the second after
+        the start it arrived."""
+        return "; ".join(f"+{t:.2f} s {x}" for t, x in zip(self.stamps,
+                                                          self.lines)
+                         if x.startswith("[daemon] ")
+                         and "tuning service" not in x)
+
+    def kill(self) -> None:
+        """SIGKILL to the daemon's whole session, and wait for it."""
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=60)
+        self.reader.join(timeout=30)
+
+    def drain(self) -> int:
+        """SIGTERM (the drain handler), then the exit code."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError("the daemon did not drain within 180 s")
+        self.reader.join(timeout=30)
+        return rc
+
+    def lane_launches(self) -> Dict:
+        """The launches of each lane, as the daemon printed them on drain."""
+        import ast
+
+        return {x.split(" on ")[0].split()[-1]:
+                ast.literal_eval(x.split("launches ", 1)[1])
+                for x in self.lines
+                if x.startswith("[daemon] lane ") and "launches " in x}
+
+
+def _pipelined(address: str, requests) -> list:
+    """Send every request in one write on one connection; the responses,
+    in order."""
+    import socket
+
+    from repro_torch.service import protocol
+
+    host, port = address.rsplit(":", 1)
+    with socket.create_connection((host, int(port)), timeout=60) as sock:
+        sock.sendall(b"".join(protocol.encode(r) for r in requests))
+        lines = sock.makefile("rb")
+        out = [protocol.decode(lines.readline()) for _ in requests]
+    for resp in out:
+        if not resp.get("ok"):
+            raise AssertionError(f"a submit was refused: {resp}")
+    return out
+
+
+def _log_tenants(when: str, tenants: Dict) -> None:
+    for name, ts in sorted(tenants.items()):
+        log(f"[service] tenant {name} {when}: {ts['spent_s']:.4f} "
+            f"worker-seconds, {ts['submitted']} submitted, "
+            f"{ts['store_hits']} answered without a trial of its own")
+
+
+def _await(client, pending: Dict, seconds: float = 300.0) -> Dict:
+    """Poll each request id until it is done; ``pending`` maps it to the
+    time it was submitted.  Returns rid -> (seconds to its result, result)."""
+    done = {}
+    deadline = time.perf_counter() + seconds
+    while pending:
+        for rid in list(pending):
+            st = client.status(rid)
+            if st["state"] == "done":
+                done[rid] = (time.perf_counter() - pending.pop(rid),
+                             client.result(rid, timeout=30))
+            elif st["state"] == "cancelled":
+                raise AssertionError(f"request {rid} was cancelled: {st}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"requests {sorted(pending)} not done in "
+                                 f"{seconds:.0f} s")
+        time.sleep(0.05)
+    return done
+
+
+def phase_service(records, device):
+    """The tuning service on the card, through its CLI and its client:
+    ``python -m repro_torch.launch.daemon`` measures on cuda:0 by default
+    (one subprocess lane).  Tenant A submits conv2d/4096 and nbody/16384
+    (budget 12), tenant B conv2d/4096 at once, which must coalesce onto A's;
+    each result must be finite and no better than 0.9x its input's
+    exhaustive record (phase 4); a repeat is answered from the store with 0
+    trials; a request for the other H100 is refused.  Then nbody/131072
+    (budget 25) starts, the daemon is SIGKILLed once ``status`` shows a
+    trial, restarted with ``--recover``: the old request ids answer as
+    before and the interrupted request ends with 25 trials in all, measured
+    on the card; SIGTERM drains it with exit code 0.  The corpus must be
+    stamped as the card's (``shards.json``'s ``provenance``).  This process launches
+    nothing meanwhile; the lanes launch conv2d and nbody."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import hwspec
+    from repro_torch.service import ServiceClient, ServiceError
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    hw = hwspec.hardware_key(hwspec.detect(0))
+    other = "h100_pcie" if hw != "h100_pcie" else "h100_sxm"
+    out = {"hardware": hw, "budget": SERVICE_BUDGET, "requests": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--store-dir", str(Path(tmp) / "corpus"), "--port", "0"]
+        first = _Daemon(args)
+        try:
+            log(f"[service] daemon up in {first.up_s:.2f} s on "
+                f"{first.address}: {first.startup()}")
+            # the corpus says its results are measured on the card, so no
+            # priced or CPU-measured daemon answers from it
+            meta = json.loads((Path(tmp) / "corpus" / "shards.json")
+                              .read_text())
+            if meta.get("provenance") != "card":
+                raise AssertionError(f"the corpus is not stamped as the "
+                                     f"card's: {meta}")
+            out["corpus_provenance"] = meta["provenance"]
+            a = ServiceClient(first.address, timeout=60)
+            b = ServiceClient(first.address, timeout=60)
+            # A's and B's identical requests in one write, answered in
+            # order: B's arrives while A's is in flight and coalesces
+            kernel, tag = SERVICE_REQUESTS[0]
+            t1 = time.perf_counter()
+            ra, r = _pipelined(first.address, [
+                {"op": "submit", "kind": "kernel", "tenant": tenant,
+                 "kernel": kernel, "input": tag, "hardware": hw,
+                 "budget": SERVICE_BUDGET} for tenant in ("A", "B")])
+            if r.get("coalesced") != ra["request_id"]:
+                raise AssertionError(f"B's {kernel}/{tag} did not coalesce "
+                                     f"onto A's: {ra}, {r}")
+            pending = {ra["request_id"]: t1, r["request_id"]: t1}
+            asked = {ra["request_id"]: ("A", kernel, tag),
+                     r["request_id"]: ("B", kernel, tag)}
+            for kernel, tag in SERVICE_REQUESTS[1:]:
+                ra2 = a.submit_kernel("A", kernel, hw, input=tag,
+                                      budget=SERVICE_BUDGET)
+                pending[ra2["request_id"]] = time.perf_counter()
+                asked[ra2["request_id"]] = ("A", kernel, tag)
+            results = _await(a, pending)
+            for rid, (seconds, res) in sorted(results.items()):
+                tenant, kernel, tag = asked[rid]
+                best = records[kernel][tag].best_runtime
+                row = {"request_id": rid, "tenant": tenant,
+                       "kernel": kernel, "input": tag,
+                       "seconds_to_result": seconds, "trials": res["trials"],
+                       "source": res["source"], "config": res["config"],
+                       "ms": res["runtime"] * 1e3,
+                       "record_best_ms": best * 1e3}
+                out["requests"].append(row)
+                log(f"[service] {tenant} {kernel}/{tag} ({rid}): "
+                    f"{res['source']}, {res['trials']} trials, "
+                    f"{row['ms']:.4f} ms (record's best {best * 1e3:.4f} "
+                    f"ms), result {seconds:.2f} s after its submit")
+                if not (math.isfinite(res["runtime"])
+                        and res["runtime"] >= SERVICE_FLOOR * best):
+                    raise AssertionError(
+                        f"{kernel}/{tag}: {res['runtime']} s against the "
+                        f"record's best {best} s")
+            coalesced = results[r["request_id"]][1]
+            if coalesced["source"] != "coalesced" or coalesced["trials"]:
+                raise AssertionError(f"B's request: {coalesced}")
+            kernel, tag = SERVICE_REQUESTS[0]
+            t1 = time.perf_counter()
+            repeat = b.submit_kernel("B", kernel, hw, input=tag,
+                                     budget=SERVICE_BUDGET)
+            log(f"[service] repeat {kernel}/{tag}: {repeat['source']}, "
+                f"{repeat['trials']} trials, "
+                f"{time.perf_counter() - t1:.3f} s")
+            if repeat["source"] != "store" or repeat["trials"] != 0:
+                raise AssertionError(f"the repeat was not a store hit: "
+                                     f"{repeat}")
+            out["repeat"] = repeat
+            try:
+                b.submit_kernel("B", kernel, other, input=tag)
+                raise AssertionError(f"a {other} request was not refused")
+            except ServiceError as exc:
+                if exc.code != "bad_request" or "no card of" not in str(exc):
+                    raise
+                log(f"[service] {other} refused: {exc}")
+                out["refused"] = str(exc)
+            st = a.stats()
+            out["tenants_before_kill"] = st["tenants"]
+            out["lanes_before_kill"] = st["lanes"]
+            _log_tenants("before the kill", st["tenants"])
+            for lane in st["lanes"]:
+                log(f"[service] lane {lane['lane']} on {lane['device']} "
+                    f"({lane['device_name']}): launches {lane['launches']}")
+                if lane["device_name"] != torch.cuda.get_device_name(device):
+                    raise AssertionError(f"the lane reports card "
+                                         f"{lane['device_name']!r}")
+                silent = [k for k, _ in SERVICE_REQUESTS
+                          if lane["launches"].get(k, 0) <= 0]
+                if silent:
+                    raise AssertionError(f"the lane never launched {silent}")
+            kernel, tag = SERVICE_RESUMED
+            r3 = a.submit_kernel("A", kernel, hw, input=tag,
+                                 budget=SERVICE_RESUMED_BUDGET)
+            rid3, t3 = r3["request_id"], time.perf_counter()
+            deadline = t3 + 300
+            while a.status(rid3)["trials"] < 1:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{rid3} took no trial in 300 s")
+                time.sleep(0.02)
+            killed_at = a.status(rid3)["trials"]
+        finally:
+            first.kill()
+        if killed_at >= SERVICE_RESUMED_BUDGET:
+            raise AssertionError(f"{rid3} had finished ({killed_at} trials) "
+                                 "before the kill")
+        log(f"[service] SIGKILL with {rid3} at {killed_at} trial(s), "
+            f"{time.perf_counter() - t3:.2f} s after its submit")
+        out["killed_at_trials"] = killed_at
+        second = _Daemon(args + ["--recover"])
+        try:
+            log(f"[service] recovered daemon up in {second.up_s:.2f} s: "
+                f"{second.startup()}")
+            c = ServiceClient(second.address, timeout=60)
+            for rid, (_, res) in sorted(results.items()):
+                again = c.result(rid, timeout=60)
+                if {k: again[k] for k in ("config", "runtime", "trials")} \
+                        != {k: res[k] for k in ("config", "runtime",
+                                                 "trials")}:
+                    raise AssertionError(f"{rid} answers otherwise after "
+                                         f"recovery: {again} != {res}")
+            t4 = time.perf_counter()
+            res3 = c.result(rid3, timeout=300)
+            st3 = c.status(rid3)
+            best = records[kernel][tag].best_runtime
+            log(f"[service] A {kernel}/{tag} ({rid3}) resumed: "
+                f"{res3['source']}, {res3['trials']} trials in all, "
+                f"{res3['runtime'] * 1e3:.4f} ms (record's best "
+                f"{best * 1e3:.4f} ms), {time.perf_counter() - t4:.2f} s "
+                f"after the restart came up")
+            if not (st3["recovered"]
+                    and res3["trials"] == SERVICE_RESUMED_BUDGET
+                    and math.isfinite(res3["runtime"])
+                    and res3["runtime"] >= SERVICE_FLOOR * best):
+                raise AssertionError(f"the resumed request: {res3}, {st3}")
+            st = c.stats()
+            out["recovery"] = st["recovery"]
+            out["tenants"] = st["tenants"]
+            out["resumed"] = {"request_id": rid3, "kernel": kernel,
+                              "input": tag, "trials": res3["trials"],
+                              "ms": res3["runtime"] * 1e3,
+                              "record_best_ms": best * 1e3}
+            _log_tenants("after the recovery", st["tenants"])
+            rc = second.drain()
+        finally:
+            if second.proc.poll() is None:
+                second.kill()
+        drained = second.lane_launches()
+        log("[service] drained: " + "; ".join(
+            x for x in second.lines if x.startswith("[daemon] lane ")))
+        if rc != 0:
+            raise AssertionError(f"the drained daemon exited with {rc}")
+        if not drained or any(v.get(kernel, 0) <= 0
+                              for v in drained.values()):
+            raise AssertionError(f"the recovered lane never launched "
+                                 f"{kernel}: {drained}")
+        out["lanes_after_recovery"] = drained
+    out["daemon_up_s"] = [first.up_s, second.up_s]
+    out["daemon_startup"] = [first.startup(), second.startup()]
+    parent = {name: w.launches for name, w in wrappers.items()}
+    if any(parent.values()):
+        raise AssertionError(f"this process launched kernels while the "
+                             f"daemon measured: {parent}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[time] service {out['seconds']:.1f} s")
+    return out
+
+
 def run_port(port: Port, hw, device):
     """Phases 3-6 for one kernel; returns the head and the rest of its
     report entry (the times go between them), its measured records and the
@@ -1250,7 +1591,10 @@ def main() -> int:
                                   for p, r in zip(PORTS, results)},
                         hw, device)
 
-    # phase 9: report
+    # phase 9: the tuning service on the card
+    service = phase_service(records, device)
+
+    # phase 10: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
@@ -1293,6 +1637,7 @@ def main() -> int:
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
               "transfer": transfer, "exact_hit": exact, "fleet": fleet,
+              "service": service,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
               "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,

@@ -83,11 +83,13 @@ class TuningJob:
 
 
 def device_spec(device: str,
-                hardware: Union[str, HardwareSpec, None]) -> HardwareSpec:
-    """The spec a measured job runs on: the one detected for a CUDA card,
-    which must be ``hardware``'s when that is given; on the CPU (the plain
-    versions, for tests) there is no card to detect, so ``hardware`` is
-    required and taken as it is."""
+                hardware: Union[str, HardwareSpec, None],
+                card: Optional[HardwareSpec] = None) -> HardwareSpec:
+    """The spec a measured job runs on: the one detected for a CUDA card
+    (or ``card``, its spec as the caller already knows it, so that nothing
+    here touches CUDA), which must be ``hardware``'s when that is given; on
+    the CPU (the plain versions, for tests) there is no card to detect, so
+    ``hardware`` is required and taken as it is."""
     import torch
 
     dev = torch.device(device)
@@ -100,7 +102,8 @@ def device_spec(device: str,
     if dev.type != "cuda":
         raise ValueError(f"a job measures on a CUDA card or the CPU, not "
                          f"{device!r}")
-    detected = hwspec.detect(dev.index if dev.index is not None else 0)
+    detected = card if card is not None else hwspec.detect(
+        dev.index if dev.index is not None else 0)
     if hardware is not None and \
             hwspec.hardware_key(hardware) != hwspec.hardware_key(detected):
         raise ValueError(
@@ -139,7 +142,8 @@ def job_from_problem(problem, hardware: Union[str, HardwareSpec, None],
                      searcher: Optional[str] = None,
                      cold_searcher: str = "random",
                      name: Optional[str] = None,
-                     device: Optional[str] = None) -> TuningJob:
+                     device: Optional[str] = None,
+                     card: Optional[HardwareSpec] = None) -> TuningJob:
     """Build a fleet job from any ``TuningProblem``.
 
     Priced (``device=None``): the problem's ``make_evaluator(hw)`` — when
@@ -147,7 +151,8 @@ def job_from_problem(problem, hardware: Union[str, HardwareSpec, None],
     ``None`` keeps the fleet's cost-model replay path, which keeps
     kernel-adapter jobs bit-identical to the JAX fleet's traces.
     Measured: a kernel problem's tests run on ``device`` (``measure_fn``),
-    on the spec detected there (``hardware=None`` takes it).
+    on the spec detected there (``hardware=None`` takes it), or on
+    ``card`` when the caller knows that card's spec (``device_spec``).
     """
     if device is not None:
         if problem.kernel is None:
@@ -157,7 +162,7 @@ def job_from_problem(problem, hardware: Union[str, HardwareSpec, None],
 
         BENCHMARKS[problem.kernel].check_input(
             BENCHMARKS[problem.kernel].inputs[problem.input_key])
-        hardware = device_spec(device, hardware)
+        hardware = device_spec(device, hardware, card)
     if hardware is None:
         raise ValueError("a priced job needs hardware=")
     hw_key = hwspec.hardware_key(hardware)
@@ -190,14 +195,16 @@ def job_from_registry(kernel: str, input_key: str,
                       budget: int = 25, seed: int = 0,
                       searcher: Optional[str] = None,
                       cold_searcher: str = "random",
-                      device: Optional[str] = None) -> TuningJob:
+                      device: Optional[str] = None,
+                      card: Optional[HardwareSpec] = None) -> TuningJob:
     """Kernel-registry shim: ``job_from_problem`` over a
     ``KernelProblem``, keeping the ``kernel/input@hw`` job name."""
     from repro_torch.tuning.problem import KernelProblem
 
     job = job_from_problem(
         KernelProblem(kernel, input_key), hardware, budget=budget, seed=seed,
-        searcher=searcher, cold_searcher=cold_searcher, device=device)
+        searcher=searcher, cold_searcher=cold_searcher, device=device,
+        card=card)
     job.name = f"{kernel}/{input_key}@{job.hardware_key}"
     return job
 

@@ -247,13 +247,20 @@ class ThreadWorkerPool:
     will serialize on the GIL and show no speedup.  Threads are not
     addressable lanes, so ``WorkItem.exclude`` is a no-op here; a raising
     ``fn`` comes back as a ``FailedResult`` (kind ``"test"``).
+    ``devices`` names the cards the jobs' evaluators measure on (the
+    threads run whatever ``fn`` they are given; the tuning service reads
+    the list to place measured jobs); None: nothing is declared.
     """
 
-    def __init__(self, workers: int = 4):
+    def __init__(self, workers: int = 4,
+                 devices: Optional[List[str]] = None):
         from concurrent.futures import ThreadPoolExecutor
 
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
+        if devices is not None and not devices:
+            raise ValueError("devices= names no card")
+        self.devices = list(devices) if devices is not None else None
         self.workers = int(workers)
         self._ex = ThreadPoolExecutor(max_workers=self.workers,
                                       thread_name_prefix="fleet-worker")

@@ -46,7 +46,7 @@ from repro_torch.tuning.problem import (KernelProblem, TuningProblem,
                                         register_problem_kind)
 from repro_torch.tuning.session import TuningSession
 from repro_torch.tuning.store import (ConfigStore, StoreEntry, legacy_kind,
-                                      split_key, store_key, upgrade_key)
+                                      split_key, store_key)
 
 __all__ = [
     "Candidate", "ConfigStore", "CostModelEvaluator",
@@ -62,5 +62,5 @@ __all__ = [
     "register_problem_kind", "register_searcher", "resolve_searcher",
     "run_search", "sequential_run_search", "similarity", "split_key",
     "space_from_dict", "space_to_dict", "store_key", "train_model",
-    "train_model_deliberate", "transfer_compatible", "upgrade_key",
+    "train_model_deliberate", "transfer_compatible",
 ]

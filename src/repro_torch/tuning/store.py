@@ -27,10 +27,8 @@ Model artifacts carry a structural **space signature**
 cross-space tier: when no model of the exact space exists, the most
 *structurally similar* same-kind space's model is rebound onto the new
 space through the shared-counter intersection
-(``nearest_transfer_key`` / ``load_transfer_model``).  Version-2 files
-(signature-less artifacts) load fine — signatures are recomputed from
-the recorded space parameters on the way in and persisted by the next
-save.
+(``nearest_transfer_key`` / ``load_transfer_model``).  A put signs an
+artifact that arrives without a signature (``ensure_signature``).
 
 Schema (``format: repro_torch.config_store``, version 3)::
 
@@ -53,10 +51,11 @@ Schema (``format: repro_torch.config_store``, version 3)::
 The leading ``kind`` field namespaces keys by *problem kind* (the
 ``TuningProblem`` registry string: "kernel", "serve", "sharding", ...) so
 artifacts from different problem kinds never collide even when their
-space names do.  Version-1 files (3-part ``space|bucket|hardware`` keys)
-still load and merge: legacy keys upgrade on the way in, with the kind
-inferred from the space name (``legacy_kind``) — serve-autotuner spaces
-were the only non-kernel artifacts that existed before version 2.
+space names do.  The format started at version 3: every key has four
+parts and every model artifact its space signature, so the JAX package's
+upgrade paths for 3-part keys and unsigned artifacts are not carried over,
+and a file of another version is refused.  A caller that names no kind
+gets the one ``legacy_kind`` infers from the space name.
 
 This is the JAX package's store carried over line for line, under its own
 format name: its model artifacts name the Hopper counters.  The serve and
@@ -101,9 +100,9 @@ from repro_torch.tuning.signature import (DEFAULT_TRANSFER_THRESHOLD,
 
 FORMAT = "repro_torch.config_store"
 VERSION = 3
-# versions this code can read and merge (v1: 3-part keys, no kind;
-# v2: kind|space|bucket|hardware keys, signature-less model artifacts)
-READABLE_VERSIONS = (1, 2, 3)
+# versions this code can read and merge: the format started at version 3
+# (kind|space|bucket|hardware keys, signed model artifacts)
+READABLE_VERSIONS = (3,)
 _SEP = "|"
 DEFAULT_KIND = "kernel"
 
@@ -142,11 +141,9 @@ def quarantine_file(path: str, why: str) -> str:
 
 
 def legacy_kind(space: str) -> str:
-    """Problem kind a pre-v2 (kind-less) key implies from its space name.
-
-    Before the ``TuningProblem`` refactor only two artifact producers
-    existed: the serve autotuner (space ``serve_online`` / ``serve*``)
-    and kernel tuning (everything else)."""
+    """Problem kind a space name implies when the caller names none: the
+    serve autotuner's spaces (``serve_online`` / ``serve*``) are of kind
+    ``serve``, everything else of kind ``kernel``."""
     return "serve" if str(space).startswith("serve") else DEFAULT_KIND
 
 
@@ -155,8 +152,7 @@ def store_key(space: str, bucket: str, hardware: str,
     """Canonical ``kind|space|bucket|hardware`` key (no field contains |).
 
     ``kind=None`` infers the problem kind from the space name via
-    ``legacy_kind`` — exactly the rule version-1 keys upgrade under, so
-    pre-refactor call sites keep resolving to the same artifacts."""
+    ``legacy_kind``."""
     parts = (str(kind if kind is not None else legacy_kind(space)),
              str(space), str(bucket), str(hardware))
     for p in parts:
@@ -166,20 +162,12 @@ def store_key(space: str, bucket: str, hardware: str,
 
 
 def split_key(key: str) -> Tuple[str, str, str, str]:
-    """``(kind, space, bucket, hardware)`` of a store key, tolerating the
-    3-part version-1 form (kind inferred via ``legacy_kind``)."""
+    """``(kind, space, bucket, hardware)`` of a 4-part store key."""
     parts = str(key).split(_SEP)
     if len(parts) == 4:
         return parts[0], parts[1], parts[2], parts[3]
-    if len(parts) == 3:
-        return legacy_kind(parts[0]), parts[0], parts[1], parts[2]
-    raise ValueError(f"malformed store key {key!r}")
-
-
-def upgrade_key(key: str) -> str:
-    """The version-2 form of any (possibly version-1) store key."""
-    kind, space, bucket, hardware = split_key(key)
-    return store_key(space, bucket, hardware, kind=kind)
+    raise ValueError(f"malformed store key {key!r}: expected "
+                     "kind|space|bucket|hardware")
 
 
 class _FileLock:
@@ -245,7 +233,7 @@ class StoreEntry:
             space=d["space"], bucket=d["bucket"], hardware=d["hardware"],
             config=dict(d["config"]), runtime=float(d["runtime"]),
             trials=int(d["trials"]), meta=dict(d.get("meta", {})),
-            kind=str(d.get("kind", "")),   # v1 entry dicts carry no kind
+            kind=str(d.get("kind", "")),
         )
 
 
@@ -269,6 +257,9 @@ class ConfigStore:
         # invalidated whenever the key mutates
         self._sig_cache: Dict[str, Optional[SpaceSignature]] = {}
         self.quarantined: List[str] = []   # damaged files moved aside
+        # how the store's results were obtained, as its writer stamped it
+        # (``set_provenance``); None: never stamped
+        self.provenance: Optional[str] = None
         # delta-save bookkeeping: keys mutated since the last save to
         # self.path, and a stat token identifying our own last write
         self._dirty_entries: set = set()
@@ -595,13 +586,26 @@ class ConfigStore:
     def to_dict(self) -> Dict[str, Any]:
         entries = {k: e.to_dict() for k, e in sorted(self._entries.items())}
         models = {k: m for k, m in sorted(self._models.items())}
-        return {
+        return self._stamped({
             "format": FORMAT,
             "version": VERSION,
             "crc": content_crc(entries, models),
             "entries": entries,
             "models": models,
-        }
+        })
+
+    def _stamped(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        if self.provenance is not None:
+            payload["provenance"] = self.provenance
+        return payload
+
+    def set_provenance(self, provenance: str) -> None:
+        """Stamp the store with how its results were obtained; written at
+        once when the store is bound to a path.  A file of one provenance
+        is never merged into a store of another (``_merge_from``)."""
+        self.provenance = provenance
+        if self.path is not None:
+            self.save(force=True)
 
     def save(self, path: Optional[str] = None, merge: bool = True,
              _post_merge=None, force: bool = False) -> str:
@@ -732,9 +736,9 @@ class ConfigStore:
                 models[k] = m
         entries = {k: entries[k] for k in sorted(entries)}
         models = {k: models[k] for k in sorted(models)}
-        return {"format": FORMAT, "version": VERSION,
-                "crc": content_crc(entries, models),
-                "entries": entries, "models": models}
+        return self._stamped({"format": FORMAT, "version": VERSION,
+                              "crc": content_crc(entries, models),
+                              "entries": entries, "models": models})
 
     @staticmethod
     def _write_atomic(path: str, payload: Dict[str, Any]) -> None:
@@ -763,32 +767,35 @@ class ConfigStore:
         faster configuration for a key wins.  A model conflict resolves to
         the HIGHER ``revision`` (a model retrained on more observations
         supersedes its stale ancestor; runtimes can't order artifacts);
-        ties — including legacy revision-less artifacts — keep ours.
-
-        Version-1 dicts merge too: their 3-part keys upgrade to the
-        ``kind|...`` form on the way in (``upgrade_key``), so a daemon
-        running this code can share a corpus with files written before
-        the refactor.
+        ties — including revision-less artifacts — keep ours.
         """
         if d.get("format") != FORMAT \
                 or d.get("version") not in READABLE_VERSIONS:
             raise ValueError(
                 f"refusing to merge non-{FORMAT}-v{READABLE_VERSIONS} file "
                 f"(format={d.get('format')!r} version={d.get('version')!r})")
+        theirs = d.get("provenance")
+        if theirs != self.provenance:
+            # results obtained one way never mix with another's; an empty
+            # side has nothing to mix, and an empty store adopts the stamp
+            if self.provenance is None and not self._entries \
+                    and not self._models:
+                self.provenance = theirs
+            elif theirs is not None or d.get("entries") or d.get("models"):
+                raise ValueError(
+                    f"refusing to merge a store of {theirs or 'unstamped'} "
+                    f"results into one of {self.provenance or 'unstamped'} "
+                    "results")
         for k, e in d.get("entries", {}).items():
             other = StoreEntry.from_dict(e)
-            k = upgrade_key(k)
             mine = self._entries.get(k)
             if mine is None or other.runtime < mine.runtime:
                 self._entries[k] = other
         for k, m in d.get("models", {}).items():
-            k = upgrade_key(k)
             mine = self._models.get(k)
             if mine is None or int(m.get("revision", 0)) \
                     > int(mine.get("revision", 0)):
-                # pre-v3 artifacts carry no signature: compute one from
-                # the recorded parameters so the transfer tier sees them
-                self._models[k] = ensure_signature(m, kind=split_key(k)[0])
+                self._models[k] = m
                 self._index_add(k)
 
     def prune(self, keep_hardware=None, keep_spaces=None,
@@ -858,8 +865,9 @@ class ConfigStore:
         crashed writer or bad disk leaves behind — move the file aside
         as ``<path>.corrupt`` and return None so the caller continues
         with what it has, instead of taking the whole load path down.
-        A VALID file of the wrong format still raises: that is a caller
-        pointing at the wrong file, not data damage.
+        A VALID file of another format, version or key schema still
+        raises: that is a caller pointing at the wrong file, not data
+        damage.
         """
         try:
             with open(path) as f:
@@ -884,13 +892,13 @@ class ConfigStore:
             self.quarantined.append(
                 quarantine_file(path, "content checksum mismatch"))
             return None
+        for k in list(d.get("entries", {})) + list(d.get("models", {})):
+            split_key(k)       # a key of another schema is refused
         return d
 
     def load(self, path: str) -> "ConfigStore":
         """Load a store file; a damaged one is quarantined and the store
-        comes up EMPTY (but usable) rather than crashing the caller.
-        Version-1 keys upgrade to the ``kind|...`` schema on load (the
-        next save persists them in version-2 form)."""
+        comes up EMPTY (but usable) rather than crashing the caller."""
         d = self._read_checked(path)
         if path == self.path:
             self._dirty_entries.clear()
@@ -900,14 +908,10 @@ class ConfigStore:
             self._entries, self._models = {}, {}
             self._reindex_models()
             return self
-        self._entries = {upgrade_key(k): StoreEntry.from_dict(e)
+        self._entries = {k: StoreEntry.from_dict(e)
                          for k, e in d.get("entries", {}).items()}
-        self._models = {}
-        for k, m in d.get("models", {}).items():
-            k = upgrade_key(k)
-            # pre-v3 artifacts gain a signature on the way in; the next
-            # save persists it (a version bump forces a full write)
-            self._models[k] = ensure_signature(m, kind=split_key(k)[0])
+        self._models = dict(d.get("models", {}))
+        self.provenance = d.get("provenance")
         self._reindex_models()
         return self
 

@@ -628,3 +628,80 @@ def test_a_measuring_pool_has_one_lane_a_card(cuda):
     with pytest.raises(ValueError):
         SubprocessWorkerPool(
             devices=[f"cuda:{torch.cuda.device_count()}"])
+
+
+# --- the tuning service measuring on the card --------------------------------
+
+@pytest.fixture
+def card_daemon(cuda):
+    """A daemon over one subprocess lane on cuda:0, driven in process."""
+    from repro_torch.fleet import SubprocessWorkerPool
+    from repro_torch.service import TuningDaemon
+    from repro_torch.tuning import ConfigStore
+
+    pool = SubprocessWorkerPool(devices=["cuda:0"])
+    d = TuningDaemon(pool, ConfigStore(), default_trial_budget=4)
+    d.tuner.begin()
+    yield d
+    pool.close()
+
+
+def _card_submit(d, kernel, inp, hw):
+    from repro_torch.service import validate_request
+
+    return d.handle(validate_request(dict(
+        op="submit", kind="kernel", tenant="t", kernel=kernel, input=inp,
+        hardware=hw)))
+
+
+def _card_drive(d, rid, seconds=300):
+    import time
+
+    deadline = time.time() + seconds
+    while d._records[rid].state not in ("done", "cancelled"):
+        assert time.time() < deadline, "the request did not resolve"
+        d._admit_pending()
+        d.tuner.step(max_wait=0.05)
+        d._meter()
+
+
+@pytest.mark.gpu
+def test_a_daemon_measures_a_kernel_request_on_the_card(card_daemon):
+    from repro_torch.core import hwspec
+
+    d = card_daemon
+    hw = hwspec.hardware_key(hwspec.detect(0))
+    assert [(dev, hwspec.hardware_key(s)) for dev, s in d.cards] == \
+        [("cuda:0", hw)]
+    assert d.provenance == "card" and d.store.provenance == "card"
+    r = _card_submit(d, "conv2d", "4096", hw)
+    rec = d._records[r["request_id"]]
+    assert rec.job.measured and rec.job.device == "cuda:0"
+    _card_drive(d, rec.rid)
+    res = d.handle({"op": "result", "request_id": rec.rid})
+    assert res["ok"] and res["trials"] == 4 and res["source"] == "tuned"
+    assert 0 < res["runtime"] < 1.0
+    lane = d.pool.lane_info()[0]
+    assert lane["device_name"] == torch.cuda.get_device_name(0)
+    assert lane["launches"]["conv2d"] > 0
+    assert d.tenants.get("t").spent_s > 0
+    again = _card_submit(d, "conv2d", "4096", hw)
+    assert again["state"] == "done" and again["trials"] == 0
+    assert again["source"] == "store"
+    assert d.pool.lane_info()[0]["launches"] == lane["launches"]
+
+
+@pytest.mark.gpu
+def test_a_daemon_refuses_a_card_it_does_not_have(card_daemon):
+    from repro_torch.core import hwspec
+
+    d = card_daemon
+    other = "h100_pcie" if hwspec.detect(0).name == "h100_sxm" \
+        else "h100_sxm"
+    r = _card_submit(d, "nbody", "16k", other)
+    assert not r["ok"] and "no card of" in r["error"]
+    assert d._records == {}
+    for _ in range(3):
+        d._admit_pending()
+        assert not d.tuner.step(max_wait=0.05)
+    assert all(n == 0 for n in d.pool.lane_info()[0]["launches"].values())

@@ -53,7 +53,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.fleet", "repro_torch.fleet.job",
                 "repro_torch.fleet.pool", "repro_torch.fleet.tuner",
                 "repro_torch.fleet.worker_main",
-                "repro_torch.launch.fleet", "repro_torch.launch.signals"} | {
+                "repro_torch.launch.fleet", "repro_torch.launch.signals",
+                "repro_torch.launch.daemon"} | {
+        f"repro_torch.service.{m}"
+        for m in ("client", "daemon", "health", "journal", "protocol",
+                  "shards", "tenants")} | {"repro_torch.service"} | {
         f"repro_torch.kernels.{k}.{part}"
         for k in ("matmul", "transpose", "conv2d", "coulomb", "nbody",
                   "attention")
@@ -100,6 +104,45 @@ def test_the_fleet_worker_and_cli_run_with_jax_and_repro_blocked(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert cli.returncode == 0, cli.stderr
     assert json.loads(out.read_text())["jobs"][0]["trials"] == 3
+
+
+def test_the_daemon_cli_runs_with_jax_and_repro_blocked(tmp_path):
+    """The daemon CLI (virtual backend) under the import block: it comes
+    up, answers a kernel submit and drains on a shutdown request."""
+    import threading
+
+    from repro_torch.service import ServiceClient
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.daemon", "--backend", "virtual", "--port", "0",
+         "--store-dir", str(tmp_path / "corpus"), "--budget", "3"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, up = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "tuning service on" in line:
+                up.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        assert up.wait(timeout=120), "".join(lines)
+        addr = next(x for x in lines if "tuning service on" in x)
+        addr = addr.split("tuning service on ")[1].split()[0]
+        with ServiceClient(addr, timeout=30) as c:
+            r = c.submit_kernel("t", "nbody", "h100_sxm", input="16k")
+            assert c.result(r["request_id"], timeout=120)["trials"] == 3
+            c.shutdown(drain=True)
+        assert proc.wait(timeout=120) == 0, "".join(lines)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert "blocked import" not in "".join(lines)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

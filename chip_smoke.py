@@ -2,8 +2,8 @@
 """End-to-end check of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
 and nbody (the paper's five benchmarks) and flash attention; then the
-cross-space transfer path of the ``ConfigStore``, the fleet and the tuning
-service on the card.
+cross-space transfer path of the ``ConfigStore``, the fleet, the tuning
+service and serving on the card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -19,7 +19,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              none in matmul or attention failing the phase, and nbody's
              MUFU, FFMA, FMUL, FADD and LDS instructions; beside them a
              variant of ``nbody.cu`` built for 4 blocks an SM instead of 3
-             (timed in phase 10) and a probe of ``conv2d.cu`` with
+             (timed in phase 11) and a probe of ``conv2d.cu`` with
              register-blocked taps at F = 15, built for its report; no
              kernel of attention.cu or conv2d.cu may spill; then the TF32
              rate mma.sync sustains on
@@ -60,11 +60,22 @@ Then, kernel by kernel (the table ``PORTS``):
 9. service — the tuning service on the card (``phase_service``):
              ``python -m repro_torch.launch.daemon`` measuring on cuda:0,
              two tenants' requests (one coalesced), a store hit, a refused
-             request for the other H100, then a SIGKILL mid-request and a
+             request for the other H100, a serve-kind request (priced) and
+             its repeat from the store, then a SIGKILL mid-request and a
              restart with ``--recover`` that finishes it on the card, and
              a SIGTERM drain.  Each submit's time to its result, trials and
              each tenant's worker-seconds are printed.
-10. report — one JSON line with each kernel's times (best and default
+10. serve  — serving on the card (``phase_serve``): qwen2.5-3b at full
+             width and depth (bf16, random weights from a seed) serves 8
+             requests in two waves of 4 through ``ServeEngine``, its
+             prefill attention on the kernel (launches = 36 x prefills, the
+             plain version never called); layer 0's attention inputs
+             through the kernel and its plain version, and wave 1's logits
+             with the model's kernel call patched to the plain version;
+             gemma-2b (2 layers) and deepseek-v2-236b (1 layer) at full
+             width; ``OnlineAutotuner`` over ``EngineBackend`` (tune, reuse,
+             drift); ``python -m repro_torch.launch.serve``.
+11. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
              power nvidia-smi reads while it runs), its bound and launches;
@@ -103,7 +114,7 @@ NOT_PORTED = ()                # every TPU kernel of the JAX package is ported
 # each target's sources are every other port: for conv2d these are the
 # SOURCES of the JAX package's transfer benchmark (benchmarks/bench_transfer.py)
 TRANSFER_TARGETS = (("conv2d", "4096"), ("attention", "default"))
-# nbody's design choices timed side by side in phase 10: the blocks an SM its
+# nbody's design choices timed side by side in phase 11: the blocks an SM its
 # variant build is bounded for (the port's is 3), and the waves the j-split
 # aims for (the port's rule takes nbody.SPLIT_WAVES, 8)
 NBODY_VARIANT_BLOCKS = 4
@@ -119,6 +130,37 @@ SERVICE_RESUMED = ("nbody", "131k")
 SERVICE_RESUMED_BUDGET = 25
 SERVICE_FLOOR = 0.9         # a tuned runtime below 0.9x the record's best
 #                             would be a mis-measurement
+# phase 9 also answers one serve-kind request (priced) and its repeat, as
+# tests/test_service.py::test_daemon_serve_kind_submit asks it
+SERVICE_SERVE = {"bucket": "p2n2", "bucket_shape": [40, 12],
+                 "batch_sizes": [1, 2, 4, 8, 16], "max_seqs": [32, 64, 96, 128]}
+# phase 10, serving: qwen2.5-3b at full width and depth (bf16) serves 8
+# requests of 128-1024 prompt tokens and 32 new tokens, in waves of 4
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_SEED = 0
+SERVE_BATCH = 4
+SERVE_MAX_SEQ = 1152
+SERVE_N = 8
+SERVE_PROMPT = (128, 1024)
+SERVE_NEW = 32
+# the model's logits through the kernel and through its plain version:
+# both attentions are fp32-accurate, but their outputs are cast to bf16,
+# where a last-bit difference flips a rounding (2**-8 relative) and 36
+# layers carry it on; 5e-2 of the largest logit holds that and catches a
+# wrong head, mask or scale (which move logits by their own size)
+SERVE_LOGIT_TOL = 5e-2
+# archs served at full width with their depth cut (name, layers kept): one
+# wave of 4 requests of 64-256 prompt tokens and 8 new tokens each
+SERVE_CUT = (("gemma-2b", 2), ("deepseek-v2-236b", 1))
+SERVE_CUT_PROMPT = (64, 256)
+SERVE_CUT_NEW = 8
+# the online autotuner on the qwen2.5-3b params: three ticks of 8 requests
+# (prompt tokens, new tokens); the third drifts to another bucket
+SERVE_TICKS = ((48, 8), (48, 8), (200, 24))
+SERVE_TUNE_RANGE = (256, 32)             # the bucketer's max prompt, max new
+SERVE_TUNE_SPACE = {"batch_sizes": (1, 2, 4, 8),
+                    "max_seqs": (64, 128, 256, 512)}
+SERVE_LIVE_TRIALS = 4
 # the head dims the check phase holds attention at beside the registry's:
 # every compiled one, and padded ones between them (1 to 256)
 ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
@@ -360,7 +402,7 @@ def nbody_variant_path() -> Path:
 
 # Builds beside the port's, each (source, flag, library): nbody's kernel
 # bounded for 4 blocks of 256 threads an SM (64 registers a thread) where
-# the port's is bounded for 3, timed in phase 10; and conv2d with
+# the port's is bounded for 3, timed in phase 11; and conv2d with
 # register-blocked taps for one F past the compiled ones, built only for
 # ptxas's report (where the unrolled taps start to spill).
 VARIANTS = (
@@ -1287,6 +1329,35 @@ def _await(client, pending: Dict, seconds: float = 300.0) -> Dict:
     return done
 
 
+def _service_serve_kind(client, hw: str) -> Dict:
+    """One serve-kind submit (priced by the daemon, in its own process) and
+    its repeat, which the store answers with 0 trials."""
+    t1 = time.perf_counter()
+    r = client.submit_serve("engine-1", hw, **SERVICE_SERVE)
+    res = r if r["state"] == "done" else \
+        client.result(r["request_id"], timeout=120)
+    seconds = time.perf_counter() - t1
+    need = sum(SERVICE_SERVE["bucket_shape"])
+    if res["config"]["MAX_SEQ"] < need or not res["trials"]:
+        raise AssertionError(f"the serve-kind request: {res}")
+    t1 = time.perf_counter()
+    again = client.submit_serve("engine-1", hw, **SERVICE_SERVE)
+    again_s = time.perf_counter() - t1
+    if again["state"] != "done" or again["trials"] != 0 \
+            or again["config"] != res["config"]:
+        raise AssertionError(f"the serve-kind repeat was not a store hit: "
+                             f"{again}")
+    log(f"[service] serve {SERVICE_SERVE['bucket']} "
+        f"{SERVICE_SERVE['bucket_shape']}: {res['source']}, "
+        f"{res['trials']} trials, {res['config']}, {seconds:.3f} s; repeat "
+        f"{again['source']}, {again['trials']} trials, {again_s:.3f} s")
+    return {"bucket": SERVICE_SERVE["bucket"], "config": res["config"],
+            "trials": res["trials"], "source": res["source"],
+            "priced_s": res["runtime"], "seconds_to_result": seconds,
+            "repeat": {"source": again["source"], "trials": again["trials"],
+                       "seconds": again_s}}
+
+
 def phase_service(records, device):
     """The tuning service on the card, through its CLI and its client:
     ``python -m repro_torch.launch.daemon`` measures on cuda:0 by default
@@ -1395,6 +1466,7 @@ def phase_service(records, device):
                     raise
                 log(f"[service] {other} refused: {exc}")
                 out["refused"] = str(exc)
+            out["serve_kind"] = _service_serve_kind(b, hw)
             st = a.stats()
             out["tenants_before_kill"] = st["tenants"]
             out["lanes_before_kill"] = st["lanes"]
@@ -1483,6 +1555,429 @@ def phase_service(records, device):
                              f"daemon measured: {parent}")
     out["seconds"] = time.perf_counter() - t0
     log(f"[time] service {out['seconds']:.1f} s")
+    return out
+
+
+def _serve_requests(rng, n: int, lo: int, hi: int, new: int, vocab: int):
+    """``n`` requests, prompt lengths drawn in [lo, hi], tokens in
+    [1, vocab)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, size=int(n_tok))
+                    .astype(np.int32), max_new_tokens=new)
+            for i, n_tok in enumerate(lens)]
+
+
+class _WaveClock:
+    """Times each wave of ``engine`` while it serves: its prefill (the
+    card's queue drained at both ends), each decode step (drained at its
+    end), the wave's wall clock, tokens and peak device memory.  Keeps
+    the first wave's prompt tokens and logits."""
+
+    def __init__(self, engine):
+        import types
+
+        import torch
+
+        self.engine, self.waves, self.first = engine, [], {}
+        model, sync = engine.model, torch.cuda.synchronize
+        run_wave, decode = engine._run_wave, engine._decode
+
+        def prefill(params, batch, max_seq):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, max_seq=max_seq)
+            sync()
+            self.waves[-1]["prefill_s"] = time.perf_counter() - t0
+            if not self.first:
+                self.first = {"tokens": batch["tokens"].clone(),
+                              "logits": logits.clone()}
+            return logits, cache
+
+        def step(params, cache, batch):
+            t0 = time.perf_counter()
+            out = decode(params, cache, batch)
+            sync()
+            self.waves[-1]["decode_s"].append(time.perf_counter() - t0)
+            return out
+
+        def wave(requests):
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            self.waves.append({"requests": len(requests), "prompt_len": max(
+                len(r.prompt) for r in requests), "decode_s": []})
+            t0 = time.perf_counter()
+            out = run_wave(requests)
+            sync()
+            w = self.waves[-1]
+            w["seconds"] = time.perf_counter() - t0
+            w["tokens"] = sum(len(v) for v in out.values())
+            w["tokens_per_s"] = w["tokens"] / w["seconds"]
+            w["decode_ms_per_step"] = (1e3 * sum(w["decode_s"])
+                                       / max(1, len(w["decode_s"])))
+            w["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            return out
+
+        engine.model = types.SimpleNamespace(prefill=prefill,
+                                             decode=model.decode)
+        engine._decode, engine._run_wave = step, wave
+        self._restore = (model, decode, run_wave)
+
+    def close(self) -> None:
+        eng = self.engine
+        eng.model, eng._decode, _ = self._restore
+        del eng._run_wave                   # back to the class's own
+
+
+def _log_waves(name: str, waves) -> None:
+    for i, w in enumerate(waves, 1):
+        log(f"[serve] {name} wave {i}: {w['requests']} requests, prompt "
+            f"{w['prompt_len']}, prefill {w['prefill_s']:.4f} s, decode "
+            f"{w['decode_ms_per_step']:.3f} ms a step ({len(w['decode_s'])} "
+            f"steps), {w['tokens']} tokens in {w['seconds']:.3f} s "
+            f"({w['tokens_per_s']:.1f} tokens/s), max memory "
+            f"{w['max_memory_gb']:.2f} GB")
+
+
+def _check_tokens(out, requests, vocab: int, name: str) -> None:
+    for r in requests:
+        toks = out[r.uid]
+        if len(toks) != r.max_new_tokens \
+                or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{name}: request {r.uid} generated {toks}")
+
+
+def _serve_kernel_at(q, k, v, hw, flush) -> Dict:
+    """The kernel (the wrapper's defaults, as the model calls it), its plain
+    version and the library call at the inputs serving gave it, and the
+    bound there."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.kernels.attention.space import AttentionInput
+
+    port = next(p for p in PORTS if p.name == "attention")
+    b, h, s, d = q.shape
+    inp = AttentionInput(batch=b, heads=h, seq=s, head_dim=d)
+    out = {"shape": inp.tag,
+           "ms": time_ms(lambda: K.flash_attention(q, k, v), 20, flush),
+           "plain_ms": time_ms(lambda: K.flash_attention_plain(q, k, v), 3,
+                               flush),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True), 20, flush),
+           "library_backend": _sdpa_backend(q, k, v)}
+    out.update(bound(port, inp, hw))
+    return out
+
+
+def _busy_share(fn) -> Dict:
+    """``fn`` run under ``torch.profiler``: its wall seconds, the seconds
+    the card spent in kernels (the sum of their device times, overlaps
+    counted twice) and the share of the wall those take; the kernels that
+    took the most.  "not measured" where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    rows = []      # the kernels themselves, not the host ops that ran them
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    device_s = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    return {"wall_s": wall,
+            "device_s": device_s if rows else "not measured",
+            "busy_share": device_s / wall if rows else "not measured",
+            "launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "ms": us / 1e3, "count": n}
+                    for us, k, n in rows[:8]]}
+
+
+def phase_serve(hw, device) -> Dict:
+    """Serving on the card, through ``ServeEngine``, ``OnlineAutotuner``
+    and ``python -m repro_torch.launch.serve``.  Raises when a wave
+    generates a token out of range, the attention kernel's launches are not
+    36 x the prefill calls (or the plain version runs), the kernel and its
+    plain version disagree beyond 2e-3 at layer 0's inputs or the logits
+    beyond ``SERVE_LOGIT_TOL``, a cut arch fails to serve, the tuner does
+    not tune, reuse and retune, or the CLI fails."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as A
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.evaluate import L2_FLUSH_BYTES
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.autotune import (EngineBackend, OnlineAutotuner,
+                                            ShapeBucketer, serve_space,
+                                            stats_from_model)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tuning.store import ConfigStore
+
+    t_phase = time.perf_counter()
+    out: Dict = {"arch": SERVE_ARCH}
+    attn_tol = next(p.tol for p in PORTS if p.name == "attention")
+    cfg = ARCHS[SERVE_ARCH]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device)
+                        .manual_seed(SERVE_SEED), device=device)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = model.param_count()
+    log(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.eff_head_dim}, {out['params'] / 1e9:.3f} B parameters "
+        f"({cfg.dtype}) drawn in {out['init_s']:.2f} s")
+    engine = ServeEngine(model, batch_size=SERVE_BATCH,
+                         max_seq=SERVE_MAX_SEQ, params=params, device=device)
+    engine.warmup()
+    reqs = _serve_requests(np.random.default_rng(SERVE_SEED), SERVE_N,
+                           *SERVE_PROMPT, SERVE_NEW, cfg.vocab_size)
+
+    # 1. the main path: launches zeroed just before, read just after; the
+    # plain version counted wherever it is called
+    plain_calls = [0]
+    plain = K.flash_attention_plain
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    clock = _WaveClock(engine)
+    K.flash_attention_plain = counted_plain
+    K.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        served = engine.generate(reqs)
+    finally:
+        K.flash_attention_plain = plain
+        clock.close()
+    launches = K.flash_attention.launches
+    out["seconds"] = time.perf_counter() - t0
+    _log_waves(SERVE_ARCH, clock.waves)
+    _check_tokens(served, reqs, cfg.padded_vocab, SERVE_ARCH)
+    n_tokens = sum(len(v) for v in served.values())
+    prefills = len(clock.waves)
+    log(f"[serve] {SERVE_ARCH}: {len(reqs)} requests, {n_tokens} tokens in "
+        f"{out['seconds']:.3f} s ({n_tokens / out['seconds']:.1f} tokens/s);"
+        f" attention kernel launches {launches} for {prefills} prefills of "
+        f"{cfg.n_layers} layers; plain version called {plain_calls[0]} times")
+    if launches != cfg.n_layers * prefills or plain_calls[0]:
+        raise AssertionError(f"attention: {launches} launches for "
+                             f"{prefills} prefills, {plain_calls[0]} plain "
+                             "calls")
+    out.update(waves=clock.waves, tokens=n_tokens, launches=launches,
+               plain_calls=plain_calls[0], prefills=prefills)
+
+    # 2. layer 0's attention inputs of wave 1 through the kernel and the
+    # plain version; then wave 1's prefill with the model's kernel call
+    # patched to the plain version
+    first = clock.first
+    captured = {}
+
+    def plain_route(q, k, v, causal=True):
+        if not captured:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone())
+        return plain(q, k, v, causal=causal)
+
+    A.flash_attention = plain_route
+    try:
+        logits_plain, _ = model.prefill(params, {"tokens": first["tokens"]},
+                                        SERVE_MAX_SEQ)
+    finally:
+        A.flash_attention = K.flash_attention
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    ref = plain(q, k, v)
+    got = K.flash_attention(q, k, v)
+    layer0 = {"shape": list(q.shape),
+              "max_abs_err": float((got - ref).abs().max()),
+              "max_rel_err": float((got - ref).abs().max()
+                                   / ref.abs().max()),
+              "tolerance": attn_tol}
+    lk, lp = first["logits"][:, -1].float(), logits_plain[:, -1].float()
+    diff = float((lk - lp).abs().max())
+    top2 = lp.topk(2, dim=-1).values
+    agree = (lk.argmax(-1) == lp.argmax(-1)).tolist()
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    logits = {"max_abs_diff": diff,
+              "max_rel_diff": diff / float(lp.abs().max()),
+              "tolerance": SERVE_LOGIT_TOL, "first_tokens_agree": agree,
+              "top2_margins": margins}
+    log(f"[serve] layer 0 attention {tuple(q.shape)}: kernel vs plain max "
+        f"abs {layer0['max_abs_err']:.3e}, rel {layer0['max_rel_err']:.3e} "
+        f"(tolerance {attn_tol}); wave 1 logits through the plain version: "
+        f"max abs diff {diff:.4e}, rel {logits['max_rel_diff']:.4e} "
+        f"(tolerance {SERVE_LOGIT_TOL}); greedy first tokens agree {agree} "
+        f"(top-2 margins {['%.4f' % m for m in margins]})")
+    if layer0["max_rel_err"] > attn_tol:
+        raise AssertionError(f"layer 0 attention: {layer0}")
+    # a greedy token may flip only where its margin lies within the
+    # logits' difference
+    if logits["max_rel_diff"] > SERVE_LOGIT_TOL or any(
+            not ok and m > 2 * diff for ok, m in zip(agree, margins)):
+        raise AssertionError(f"wave 1 logits: {logits}")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    before = K.flash_attention.launches
+    timing = _serve_kernel_at(q, k, v, hw, flush)
+    # where a wave's time goes: wave 1's prefill, then 8 decode steps, each
+    # under the profiler (the card's kernel time against the wall clock)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, {"tokens": first["tokens"]}, SERVE_MAX_SEQ)
+
+    def run_decode():
+        tok = state["logits"][:, -1].argmax(-1)
+        for _ in range(8):
+            logits, state["cache"] = model.decode(
+                params, state["cache"], {"tokens": tok[:, None]})
+            tok = logits[:, -1].argmax(-1)
+            tok.tolist()                      # the engine's host read
+    profiles = {"prefill": _busy_share(run_prefill),
+                "decode_8_steps": _busy_share(run_decode)}
+    del state
+    K.flash_attention.launches = before        # comparisons do not count
+    for what, pr in profiles.items():
+        share = pr["busy_share"]
+        log(f"[serve] profile {what}: wall {pr['wall_s']:.4f} s, card busy "
+            + (f"{pr['device_s']:.4f} s ({share:.1%})"
+               if not isinstance(share, str) else share)
+            + f", {pr['launches']} kernels; top: " + "; ".join(
+                f"{t['kernel']} {t['ms']:.3f} ms x{t['count']}"
+                for t in pr["top"][:4]))
+    out["profile"] = profiles
+    log(f"[serve] attention at {timing['shape']}: kernel {timing['ms']:.4f}"
+        f" ms, plain {timing['plain_ms']:.4f} ms, library "
+        f"{timing['library_ms']:.4f} ms ({timing['library_backend']}), bound"
+        f" {timing['bound_ms']:.4f} ms ({timing['bound_unit']})")
+    out.update(layer0=layer0, logits=logits, attention_at_serve=timing)
+    del flush, q, k, v, ref, got, captured, first, clock
+    torch.cuda.empty_cache()
+
+    # 3. full width, depth cut
+    out["reduced"] = []
+    for name, layers in SERVE_CUT:
+        full = ARCHS[name]
+        ccfg = full.scaled(n_layers=layers)
+        cmodel = build_model(ccfg)
+        t0 = time.perf_counter()
+        cparams = cmodel.init(torch.Generator(device=device)
+                              .manual_seed(SERVE_SEED), device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ceng = ServeEngine(cmodel, batch_size=SERVE_BATCH,
+                           max_seq=SERVE_CUT_PROMPT[1] + SERVE_CUT_NEW,
+                           params=cparams, device=device)
+        ceng.warmup()
+        creqs = _serve_requests(np.random.default_rng(SERVE_SEED),
+                                SERVE_BATCH, *SERVE_CUT_PROMPT,
+                                SERVE_CUT_NEW, ccfg.vocab_size)
+        cclock = _WaveClock(ceng)
+        K.flash_attention.launches = 0
+        try:
+            cout = ceng.generate(creqs)
+        finally:
+            cclock.close()
+        claunch = K.flash_attention.launches
+        _log_waves(f"{name} ({layers} of {full.n_layers} layers)",
+                   cclock.waves)
+        _check_tokens(cout, creqs, ccfg.padded_vocab, name)
+        expect = 0 if ccfg.kv_lora_rank else layers * len(cclock.waves)
+        if claunch != expect:
+            raise AssertionError(f"{name}: {claunch} attention launches, "
+                                 f"{expect} expected")
+        row = {"arch": name, "reduced": f"n_layers {full.n_layers} -> "
+                                        f"{layers}",
+               "params": cmodel.param_count(), "init_s": init_s,
+               "attention": "plain (MLA)" if ccfg.kv_lora_rank
+               else "kernel", "launches": claunch, "waves": cclock.waves}
+        log(f"[serve] {name}: reduced {row['reduced']}, "
+            f"{row['params'] / 1e9:.3f} B parameters drawn in {init_s:.2f} "
+            f"s, attention {row['attention']}, {claunch} kernel launches")
+        out["reduced"].append(row)
+        del cparams, ceng, cclock, cmodel
+        torch.cuda.empty_cache()
+    out["launches_total"] = launches + sum(r["launches"]
+                                           for r in out["reduced"])
+
+    # 4. the online autotuner on the same params
+    ticks = []
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = EngineBackend(model, params=params, device=device)
+        tuner = OnlineAutotuner(
+            backend, store=ConfigStore(os.path.join(tmp, "store.json")),
+            bucketer=ShapeBucketer(*SERVE_TUNE_RANGE),
+            space=serve_space(**SERVE_TUNE_SPACE),
+            stats=stats_from_model(model), hw=hw,
+            max_live_trials=SERVE_LIVE_TRIALS, window=SERVE_N)
+        for i, (plen, new) in enumerate(SERVE_TICKS):
+            treqs = _serve_requests(np.random.default_rng(SERVE_SEED + i),
+                                    SERVE_N, plen, plen, new, cfg.vocab_size)
+            t0 = time.perf_counter()
+            tout, rep = tuner.serve(treqs)
+            seconds = time.perf_counter() - t0
+            _check_tokens(tout, treqs, cfg.padded_vocab, f"tick {i + 1}")
+            ticks.append({"bucket": rep.bucket, "drift": rep.drift,
+                          "reused": rep.reused,
+                          "live_trials": rep.live_trials,
+                          "config": rep.config, "seconds": seconds,
+                          "history": [list(h) for h in rep.history]})
+            log(f"[serve] autotuner tick {i + 1} ({SERVE_N} requests, prompt"
+                f" {plen}, {new} new): bucket {rep.bucket}, drift "
+                f"{rep.drift}, live trials {rep.live_trials}, config "
+                f"{rep.config}, {seconds:.3f} s")
+    t1, t2, t3 = ticks
+    if not (t1["drift"] and 0 < t1["live_trials"] <= SERVE_LIVE_TRIALS
+            and not t2["drift"] and t2["live_trials"] == 0
+            and t2["config"] == t1["config"] and t3["drift"]
+            and t3["bucket"] != t1["bucket"] and t3["live_trials"] > 0):
+        raise AssertionError(f"the online autotuner's ticks: {ticks}")
+    out["autotuner"] = {"hardware": tuner.hardware_name, "ticks": ticks}
+    del backend, tuner, engine, params
+    torch.cuda.empty_cache()
+
+    # 5. the CLI
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         SERVE_ARCH, "--requests", str(SERVE_N)], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    line = next((x for x in cli.stdout.splitlines()
+                 if x.startswith(f"[serve] {SERVE_ARCH} on cuda")), None)
+    log(f"[serve] CLI exit {cli.returncode} in {cli_s:.1f} s: {line}")
+    if cli.returncode != 0 or line is None:
+        raise AssertionError(f"the serve CLI: exit {cli.returncode}\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+    out["cli"] = {"seconds": cli_s, "line": line}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] serve {out['phase_s']:.1f} s")
     return out
 
 
@@ -1594,7 +2089,11 @@ def main() -> int:
     # phase 9: the tuning service on the card
     service = phase_service(records, device)
 
-    # phase 10: report
+    # phase 10: serving on the card
+    serve = phase_serve(hw, device)
+    serve["service_serve_kind"] = service["serve_kind"]
+
+    # phase 11: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
@@ -1604,6 +2103,11 @@ def main() -> int:
         times = kernel_times(port, bench, bench.inputs[port.tune],
                              port_records[port.tune], hw, device, flush)
         entry = {**head, **times, **rest}
+        if port.name == "attention":
+            # the serve phase's prefills launch it on their main path too
+            entry["launches"] += serve["launches_total"]
+            entry["launches_serve"] = serve["launches_total"]
+            entry["at_serve"] = serve["attention_at_serve"]
         for tag in port.sweeps[1:]:
             entry["at_" + bench.inputs[tag].tag] = kernel_times(
                 port, bench, bench.inputs[tag], port_records[tag], hw,
@@ -1637,7 +2141,7 @@ def main() -> int:
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
               "transfer": transfer, "exact_hit": exact, "fleet": fleet,
-              "service": service,
+              "service": service, "serve": serve,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
               "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,

@@ -122,6 +122,23 @@ def _failed(item: WorkItem, error: str, kind: str, lane: int, cost: float,
         kind=kind, lane=lane, attempt=item.attempt)
 
 
+def _run_here(item: WorkItem, t0: float) -> WorkResult:
+    """``item.fn`` run in this process, charged the wall-clock seconds it
+    took; a raising ``fn`` comes back as a failed test."""
+    start = time.perf_counter()
+    try:
+        rt, cs, _ = item.fn()
+        err = None
+    except Exception as e:                      # surfaced at collect()
+        rt, cs, err = float("inf"), None, f"{type(e).__name__}: {e}"
+    end = time.perf_counter()
+    return WorkResult(
+        uid=item.uid, job=item.job, index=item.index, runtime=rt,
+        counters=cs, cost=end - start, finished_at=end - t0,
+        error=err, kind=FAIL_TEST if err is not None else None,
+        attempt=item.attempt)
+
+
 class VirtualWorkerPool:
     """Deterministic ``workers``-lane scheduling on a virtual clock.
 
@@ -269,18 +286,7 @@ class ThreadWorkerPool:
         self._outstanding = 0
 
     def _run(self, item: WorkItem) -> None:
-        start = time.perf_counter()
-        try:
-            rt, cs, _ = item.fn()
-            err = None
-        except Exception as e:                      # surfaced at collect()
-            rt, cs, err = float("inf"), None, f"{type(e).__name__}: {e}"
-        end = time.perf_counter()
-        self._done.put(WorkResult(
-            uid=item.uid, job=item.job, index=item.index, runtime=rt,
-            counters=cs, cost=end - start, finished_at=end - self._t0,
-            error=err, kind=FAIL_TEST if err is not None else None,
-            attempt=item.attempt))
+        self._done.put(_run_here(item, self._t0))
 
     def submit(self, item: WorkItem) -> None:
         self._outstanding += 1
@@ -315,7 +321,10 @@ class SubprocessWorkerPool:
     lanes than it has cards (``workers`` must equal ``len(devices)``, each
     card named once).  Without ``devices``, ``workers`` lanes price each
     test on the cost model.  Work items must carry a ``payload`` naming a
-    registered kernel workload; results stream back on a reader thread per
+    registered kernel workload, except those of a job that names no kernel
+    (a serve problem, priced on the cost model): these run in this
+    process, charged the seconds they take here, and never reach a lane.
+    Results stream back on a reader thread per
     lane, so ``collect`` sees completions in real finish order across the
     whole pool.  ``lane_info()`` reports each lane's device, the card's
     name and the launches of each kernel wrapper its tests made.
@@ -462,9 +471,15 @@ class SubprocessWorkerPool:
 
     def submit(self, item: WorkItem) -> None:
         if item.payload is None:
-            raise ValueError(
-                "SubprocessWorkerPool needs serializable payloads "
-                "(build jobs with fleet.job_from_registry)")
+            if item.fn is None:
+                raise ValueError(
+                    "SubprocessWorkerPool needs serializable payloads "
+                    "(build jobs with fleet.job_from_registry)")
+            # a job that names no kernel (a serve problem, priced on the
+            # cost model) runs in this process, never in a lane
+            self._outstanding += 1
+            self._done.put(_run_here(item, self._t0))
+            return
         self._outstanding += 1
         while True:
             with self._lock:

@@ -25,9 +25,10 @@ happens only when asked::
     PYTHONPATH=src python -m repro_torch.launch.fleet --devices cpu \\
         --hw h100_sxm --kernels matmul --inputs 128 --budget 4
 
-Only the ``kernel`` problem kind is ported: ``--problem kernel:conv2d/4096``
-works, while ``--system`` and the ``sharding`` and ``serve`` kinds are
-refused until they are ported.
+The CLI tunes ``kernel`` problems: ``--problem kernel:conv2d/4096`` works,
+while ``--system`` and the ``sharding`` and ``serve`` kinds are refused:
+the sharding kind is not ported, and the serve kind (ported, priced; the
+tuning service's daemon answers it) joins this CLI with ``--system``.
 """
 from __future__ import annotations
 
@@ -35,9 +36,10 @@ import argparse
 import json
 import time
 
-NOT_PORTED = ("the sharding and serve problem kinds (and --system, which "
-              "tunes them) are not ported yet: they wait for ROADMAP.md, "
-              "queue 1, item 9")
+NOT_PORTED = ("this CLI tunes kernel problems: the sharding kind is not "
+              "ported yet, and it and the serve kind (which the tuning "
+              "service's daemon answers) join the CLI with --system: they "
+              "wait for ROADMAP.md, queue 1, item 9")
 
 
 def visible_cards():

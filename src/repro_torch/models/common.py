@@ -1,0 +1,254 @@
+"""Model substrate: parameter definitions, norms, linear layers, RoPE, the
+gated MLP and the cross-entropy, in PyTorch.
+
+The JAX package's ``repro.models.common`` carried over function for
+function.  Every leaf is declared by a ``ParamDef`` (shape, logical axes,
+initializer), and ``init_params`` draws each leaf from the same
+distribution as the JAX package (normal with the fan-in or the declared
+scale as its standard deviation, zeros, ones) from an explicit
+``torch.Generator`` on an explicit device.  It follows the distributions,
+not the bits: weights are carried from the JAX package with
+``repro_torch.models.convert.params_from_jax``.
+
+``dense`` is a ``torch.matmul``: the JAX package computes its products in
+plain JAX, outside any Pallas kernel.  The numerics follow the JAX
+functions: norms in fp32, cast back to the input's dtype; RoPE angles in
+fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...]
+    init: str = "normal"      # normal | zeros | ones
+    scale: Optional[float] = None  # stddev; default fan-in
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.spec), (self.shape, self.spec)
+
+
+def _tree_map_defs(fn: Callable, defs):
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    return {k: _tree_map_defs(fn, v) for k, v in defs.items()}
+
+
+def stack_defs(defs, n: int):
+    """Prepend a layers axis to every leaf (the JAX package scans over it;
+    the port keeps one module a layer and draws each stacked leaf whole)."""
+    return _tree_map_defs(
+        lambda d: ParamDef((n,) + d.shape, ("layers",) + d.spec, d.init,
+                           d.scale),
+        defs,
+    )
+
+
+def param_leaves(defs, path: Tuple[str, ...] = ()):
+    """``(path, ParamDef)`` of every leaf, in the sorted-path order the
+    JAX package's ``init_params`` draws them in."""
+    if isinstance(defs, ParamDef):
+        return [(path, defs)]
+    out = []
+    for k in sorted(defs):
+        out.extend(param_leaves(defs[k], path + (k,)))
+    return out
+
+
+def init_leaf(d: ParamDef, generator: torch.Generator,
+              dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One leaf drawn as the JAX package draws it: zeros, ones, or a
+    normal in fp32 times the scale (default 1/sqrt(fan-in)), cast."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
+    arr = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                      device=device)
+    return arr.mul_(std).to(dtype)
+
+
+def init_params(defs, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: Optional[torch.device] = None) -> Params:
+    """Materialize a ParamDef tree as nested dicts of tensors on
+    ``device``; ``generator`` must lie on that device."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    out: Params = {}
+    for path, d in param_leaves(defs):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = init_leaf(d, generator, dtype, device)
+    return out
+
+
+# =============================================================================
+# Elementary layers
+# =============================================================================
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma).to(dt)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * gamma + beta).to(dt)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
+    return y
+
+
+# --- rotary position embeddings ----------------------------------------------
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) integers."""
+    d = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=x.device) / d))
+    ang = positions[..., None].to(torch.float32) * inv   # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                   # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    out = torch.stack([y1, y2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+# --- gated MLPs ----------------------------------------------------------------
+def mlp_defs(d_model: int, d_ff: int, gated: bool = True) -> Dict[str, ParamDef]:
+    defs = {
+        "w_up": ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "w_down": ParamDef((d_ff, d_model), ("mlp", "embed")),
+    }
+    if gated:
+        defs["w_gate"] = ParamDef((d_model, d_ff), ("embed", "mlp"))
+    return defs
+
+
+# jax.nn.gelu defaults to the tanh approximation
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda t: F.gelu(t, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def mlp_apply(p: Params, x: torch.Tensor,
+              activation: str = "silu") -> torch.Tensor:
+    act = ACTIVATIONS[activation]
+    up = dense(x, p["w_up"])
+    if "w_gate" in p:
+        up = act(dense(x, p["w_gate"])) * up
+    else:
+        up = act(up)
+    return dense(up, p["w_down"])
+
+
+# =============================================================================
+# Loss: cross-entropy, optionally chunked along the sequence
+# =============================================================================
+def _chunk_ce(hidden: torch.Tensor, w_out: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    logits = torch.matmul(hidden, w_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def cross_entropy_from_hidden(
+    hidden: torch.Tensor,     # (B, S, D)
+    w_out: torch.Tensor,      # (D, V)
+    labels: torch.Tensor,     # (B, S) integers
+    seq_chunks: int = 1,
+) -> torch.Tensor:
+    b, s, _ = hidden.shape
+    if seq_chunks <= 1:
+        return torch.mean(_chunk_ce(hidden, w_out, labels))
+    assert s % seq_chunks == 0, (s, seq_chunks)
+    cs = s // seq_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(seq_chunks):
+        total = total + torch.sum(_chunk_ce(
+            hidden[:, c * cs:(c + 1) * cs], w_out,
+            labels[:, c * cs:(c + 1) * cs]))
+    return total / (b * s)
+
+
+# =============================================================================
+# Parameters as modules
+# =============================================================================
+class ParamTree(torch.nn.Module):
+    """A ParamDef tree as a module: a leaf is a parameter (no gradient:
+    the port serves, training is a later slice), a subtree a child
+    module, and a stacked subtree (``layers`` leading axis) a
+    ``ModuleList`` of one tree a layer.  ``p["wq"]``, ``p.get("bq")`` and
+    ``"w_gate" in p`` read it as the JAX package's functions read their
+    nested dicts.
+
+    ``leaf(path, ParamDef)`` makes each tensor, stacked leaves whole;
+    ``stacked`` names the subtrees split into layers."""
+
+    def __init__(self, defs, leaf: Callable, path: Tuple[str, ...] = (),
+                 stacked: Tuple[str, ...] = ()):
+        super().__init__()
+        self._keys = tuple(sorted(defs))
+        for k in self._keys:
+            d = defs[k]
+            if isinstance(d, ParamDef):
+                self.register_parameter(k, torch.nn.Parameter(
+                    leaf(path + (k,), d), requires_grad=False))
+            elif k in stacked:
+                self.add_module(k, _split_layers(d, leaf, path + (k,)))
+            else:
+                self.add_module(k, ParamTree(d, leaf, path + (k,)))
+
+    def __getitem__(self, k: str):
+        if k not in self._keys:
+            raise KeyError(k)
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._keys
+
+    def get(self, k: str, default=None):
+        return self[k] if k in self._keys else default
+
+
+def _split_layers(defs, leaf: Callable, path: Tuple[str, ...]
+                  ) -> torch.nn.ModuleList:
+    """A stacked subtree as one ParamTree a layer, each stacked leaf made
+    whole (one draw, as the JAX package draws it) and sliced."""
+    whole = {p: leaf(path + p, d) for p, d in param_leaves(defs)}
+    n = next(iter(whole.values())).shape[0]
+    layer_defs = _tree_map_defs(
+        lambda d: ParamDef(d.shape[1:], d.spec[1:], d.init, d.scale), defs)
+    return torch.nn.ModuleList(
+        ParamTree(layer_defs, lambda p, d, i=i: whole[p][i])
+        for i in range(n))

@@ -29,8 +29,8 @@ daemon recovers the request from its journal and ``result()`` rides out
 the restart inside its reconnect window.
 
 This is the JAX package's client unchanged, ``submit_serve`` included: it
-talks to a daemon of either package, and only the port's daemon refuses
-the serve kind, until the serving autotuner is ported.
+talks to a daemon of either package.  The port's ``OnlineAutotuner``
+routes its drift retunes through it.
 """
 from __future__ import annotations
 

@@ -56,9 +56,19 @@ reports, so the daemon process itself never touches CUDA.  The CPU
 (``"cpu"``, the kernels' plain versions, for tests) stands in for a
 ``CPU_HARDWARE`` card.  A pool without devices (``VirtualWorkerPool``, or
 subprocess lanes without devices) PRICES each test on the cost model,
-exactly as the JAX daemon does.  Serve-kind submits are refused until the
-serving autotuner is ported; so are ``problem`` submits of the kinds the
-port's problem registry lacks.
+exactly as the JAX daemon does.  ``problem`` submits of the kinds the
+port's problem registry lacks (``sharding``) are refused.
+
+Serve requests are priced, by a measuring daemon too.  A serve-kind
+submit (and a ``serve:`` problem) becomes a job of the
+``ServeProblem`` the JAX daemon builds: its tests price the portable
+serving workload on the cost model for the named hardware (a registered
+spec, or the spec the client ships), as the JAX daemon prices them, and no
+serving engine is measured in a lane (a ``SubprocessWorkerPool`` prices
+such a test in the daemon's own process).  Their store keys
+(``serve|<space>|<bucket>|<hardware>``) lie in a namespace of their own,
+so a priced serve entry in a measuring daemon's corpus never answers a
+kernel request, and it means the same in a corpus of any provenance.
 
 Priced, CPU-measured and card-measured results share store keys, so they
 never share a store or a journal: a measuring daemon stamps its store
@@ -94,9 +104,9 @@ from repro_torch.service.tenants import AdmissionError, TenantManager
 from repro_torch.tuning.store import split_key, store_key
 
 # problem kinds of the JAX package that the port does not have yet
-NOT_PORTED_KINDS = ("sharding", "serve")
-NOT_PORTED = ("the serving autotuner and the sharding and serve problem "
-              "kinds are not ported yet (ROADMAP.md, queue 1, items 8-9)")
+NOT_PORTED_KINDS = ("sharding",)
+NOT_PORTED = ("the sharding problem kind is not ported yet (ROADMAP.md, "
+              "queue 1, item 9)")
 
 # the card a "cpu" device of a measuring pool stands in for (tests measure
 # the kernels' plain versions there)
@@ -765,7 +775,10 @@ class TuningDaemon:
                     why += f" ({NOT_PORTED})"
                 raise P.ProtocolError(why, code=P.E_UNKNOWN_PROBLEM) \
                     from None
-            hardware, device = self._place(req["hardware"])
+            # a problem that names no kernel (serve) is priced, never
+            # placed on a card
+            hardware, device = self._place(req["hardware"]) \
+                if problem.kernel is not None else (req["hardware"], None)
             try:
                 job = job_from_problem(
                     problem, hardware, budget=budget,
@@ -796,9 +809,46 @@ class TuningDaemon:
                     from None
             return job, store_key(job.space.name, job.bucket,
                                   job.hardware_key, kind=job.kind)
-        raise P.ProtocolError(
-            "serve-kind submits need the serving autotuner (ServeProblem), "
-            f"which this daemon does not have: {NOT_PORTED}")
+        return self._build_serve_job(req, budget)
+
+    def _build_serve_job(self, req: Dict[str, Any],
+                         budget: int) -> Tuple[TuningJob, str]:
+        """A serve-kind submit reconstructs the client's tuning problem as
+        a ``ServeProblem``: the SAME space (so published model artifacts
+        bind on the client side) and the portable serving workload at the
+        client's explicit bucket shape, priced on the cost model with the
+        client's feasibility rule, whatever the pool measures."""
+        from repro_torch.fleet import job_from_problem
+        from repro_torch.serve.autotune import ServeProblem
+        if req["hardware_spec"] is not None:
+            # hardware outside this daemon's registry (a replica's "cpu"
+            # label, a lab card): price on the shipped spec numbers and
+            # key the store by their fingerprint, like the fleet does
+            try:
+                hw = HardwareSpec(**req["hardware_spec"])
+            except TypeError as exc:
+                raise P.ProtocolError(f"bad hardware_spec: {exc}") \
+                    from None
+        else:
+            try:
+                hw = hwspec.get(req["hardware"])
+            except KeyError as exc:
+                raise P.ProtocolError(f"unknown hardware: {exc}") from None
+        try:
+            problem = ServeProblem(
+                req["bucket"], batch_sizes=req["batch_sizes"],
+                max_seqs=req["max_seqs"], space_name=req["space"],
+                calib_n=req["calib_n"], stats=req["stats"],
+                shape=tuple(req["bucket_shape"]))
+        except ValueError as exc:
+            raise P.ProtocolError(str(exc)) from None
+        job = job_from_problem(
+            problem,
+            hw if req["hardware_spec"] is not None else req["hardware"],
+            budget=budget, seed=req["seed"],
+            name=f"serve:{req['bucket']}")   # renamed to the rid on accept
+        return job, store_key(job.space.name, job.bucket,
+                              job.hardware_key, kind=job.kind)
 
     def _place(self, hardware: str) -> Tuple[Union[str, HardwareSpec],
                                              Optional[str]]:

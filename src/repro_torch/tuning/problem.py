@@ -6,14 +6,17 @@ workload model ``g : TP × I → PC_ops`` whose counters feed the TP→PC
 model, and (optionally) a measurement substrate for the hardware of
 interest.  This module lifts that contract out of the kernel registry so
 the store and the searchers tune anything that speaks it.  It is the JAX
-package's module carried over, with one problem kind so far:
+package's module carried over, with two problem kinds so far:
 
 * ``kernel`` — a thin adapter over ``kernels/registry.py``: one of the
-  port's hand-written Hopper kernels on one named registry input.
+  port's hand-written Hopper kernels on one named registry input;
+* ``serve`` — ``repro_torch.serve.autotune.ServeProblem``: the serving
+  wave geometry (BATCH × MAX_SEQ) of one shape bucket, priced on the
+  cost model.
 
-The ``sharding`` (train-step layouts) and ``serve`` (serving wave
-geometry) kinds wait for later slices of the port (ROADMAP.md).  The
-fleet (``repro_torch.fleet``) schedules problems of the kinds there are.
+The ``sharding`` kind (train-step layouts) waits for a later slice of the
+port (ROADMAP.md, queue 1, item 9).  The fleet (``repro_torch.fleet``)
+schedules problems of the kinds there are.
 
 A problem also names its identity in the persistent ``ConfigStore``:
 ``kind`` is the key namespace (``kind|space|bucket|hardware``) and
@@ -197,3 +200,16 @@ def _kernel_names() -> List[str]:
 def _make_kernel(name: str, **params: Any) -> KernelProblem:
     kernel, _, input_key = name.partition("/")
     return KernelProblem(kernel, input_key or None, **params)
+
+
+# =============================================================================
+# kind = "serve" — lazy factory (the serving modules import on demand)
+# =============================================================================
+def _serve_names() -> List[str]:
+    return ["p9n9", "p4n4", "p9n0"]
+
+
+@register_problem_kind("serve", lister=_serve_names)
+def _make_serve(name: str, **params: Any) -> TuningProblem:
+    from repro_torch.serve.autotune import ServeProblem
+    return ServeProblem.from_name(name, **params)

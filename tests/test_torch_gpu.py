@@ -1,5 +1,8 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-PyTorch versions on the card, and the card evaluator.
+PyTorch versions on the card, the card evaluator, the fleet and the daemon
+on the card, and serving (the model zoo's SMOKE archs on the card against
+the port on the CPU, attention at the model's shapes, the engine, the
+online autotuner's timed waves and the serve CLI).
 
 This file imports no JAX, so that it runs where the card is and JAX is not:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  Without a card every
@@ -705,3 +708,175 @@ def test_a_daemon_refuses_a_card_it_does_not_have(card_daemon):
         d._admit_pending()
         assert not d.tuner.step(max_wait=0.05)
     assert all(n == 0 for n in d.pool.lane_info()[0]["launches"].values())
+
+
+# =============================================================================
+# Serving on the card: the model zoo's transformer families, prefill
+# attention on the kernel, the engine, the online autotuner's backend, the
+# serve CLI
+# =============================================================================
+SMOKE_ARCHS = ["qwen1.5-0.5b", "qwen2.5-3b", "gemma-2b", "command-r-plus-104b",
+               "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b"]
+MODEL_TOL = 1e-4     # fp32 SMOKE models, card against CPU: the sums' order
+
+
+def _rel_t(out, ref) -> float:
+    out, ref = out.double().cpu(), ref.double().cpu()
+    return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_each_smoke_arch_on_the_card_matches_the_port_on_the_cpu(
+        cuda, arch, monkeypatch):
+    """Prefill logits and 4 decode steps (both fed the CPU's greedy
+    tokens), one parameter set moved to the card; on the card the prefill
+    attention never takes the plain version."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models.registry import build_model
+
+    cfg = SMOKES[arch]
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(2, 23)).astype(np.int32))}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
+    ref, ref_cache = model.prefill(cpu_params, batch, 40)
+    card_params = model.init(torch.Generator().manual_seed(2), device="cpu")
+    card_params.to(cuda)
+    monkeypatch.setattr(A, "flash_attention_plain", lambda *a, **k: (
+        _ for _ in ()).throw(AssertionError("plain version on the card")))
+    before = A.flash_attention.launches
+    out, cache = model.prefill(card_params, {k: v.to(cuda)
+                                             for k, v in batch.items()}, 40)
+    assert A.flash_attention.launches - before == (
+        0 if cfg.kv_lora_rank else cfg.n_layers)
+    assert _rel_t(out, ref) < MODEL_TOL
+    tok = ref[:, -1].argmax(-1)
+    for _ in range(4):
+        ref, ref_cache = model.decode(cpu_params, ref_cache,
+                                      {"tokens": tok[:, None]})
+        out, cache = model.decode(card_params, cache,
+                                  {"tokens": tok[:, None].to(cuda)})
+        assert _rel_t(out, ref) < MODEL_TOL
+        tok = ref[:, -1].argmax(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 17, 64, 1000])
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+def test_attention_kernel_at_model_shapes_matches_its_plain_version(
+        cuda, hkv, s, d):
+    """The model's prefill attention at its shapes: bf16 activations, kv
+    heads repeated to H = 4, cast to fp32, through the kernel against its
+    plain version (2e-3); the model's function gives the kernel's output
+    cast back to bf16, with one launch."""
+    from repro_torch.models.attention import kernel_causal_attention
+
+    rng = np.random.default_rng(s * d + hkv)
+
+    def act(heads):
+        return torch.from_numpy(rng.standard_normal(
+            (2, s, heads, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    q, k, v = act(4), act(hkv), act(hkv)
+    qh = q.transpose(1, 2).float().contiguous()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(4 // hkv, dim=1).float()
+              .contiguous() for t in (k, v))
+    got = A.flash_attention(qh, kh, vh)
+    ref = A.flash_attention_plain(qh, kh, vh)
+    assert _rel_t(got, ref) < 2e-3
+    before = A.flash_attention.launches
+    model_out = kernel_causal_attention(q, k, v)
+    assert A.flash_attention.launches == before + 1
+    assert model_out.dtype == torch.bfloat16
+    assert torch.equal(model_out, got.transpose(1, 2).to(torch.bfloat16))
+
+
+def _smoke_engine(cuda, arch="qwen2.5-3b", batch=2):
+    from repro_torch.configs import SMOKES
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    model = build_model(SMOKES[arch].scaled(dtype="bfloat16"))
+    return ServeEngine(model, batch_size=batch, max_seq=64,
+                       generator=torch.Generator(cuda).manual_seed(0),
+                       device=cuda)
+
+
+def _serve_reqs(n=5, seed=0):
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, 500, size=int(
+        rng.integers(3, 30))).astype(np.int32), max_new_tokens=6)
+        for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_the_engine_gives_the_same_tokens_twice(cuda):
+    engine = _smoke_engine(cuda)
+    a = engine.generate(_serve_reqs())
+    b = engine.generate(_serve_reqs())
+    assert a == b and all(len(v) == 6 for v in a.values())
+
+
+@pytest.mark.gpu
+def test_engine_backend_measure_synchronizes_before_it_reads_the_clock(
+        cuda, monkeypatch):
+    """CUDA is asynchronous: the wave's clock starts after the card's queue
+    is drained and is read after it is drained again, under the card's
+    timing lock."""
+    import time as _time
+    import types
+
+    from repro_torch.core.evaluate import device_lock
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.autotune import EngineBackend
+
+    engine = _smoke_engine(cuda)
+    backend = EngineBackend(engine.model, params=engine.params, device=cuda)
+    cfg = {"BATCH": 2, "MAX_SEQ": 64}
+    backend._engine(2, 64, n_requests=5)          # warm, untimed
+    events = []
+    sync = E.synchronize
+    lock = device_lock(cuda)
+
+    def logged_sync(dev):
+        sync(dev)
+        events.append(("sync", torch.cuda.current_stream(dev).query(),
+                       lock.locked()))
+
+    def clock():
+        events.append(("clock",))
+        return _time.perf_counter()
+
+    monkeypatch.setattr(E, "synchronize", logged_sync)
+    monkeypatch.setattr(E, "time", types.SimpleNamespace(perf_counter=clock))
+    seconds = backend.measure(cfg, _serve_reqs())
+    assert seconds > 0
+    assert events == [("sync", True, True), ("clock",),
+                      ("sync", True, True), ("clock",)]
+
+
+@pytest.mark.gpu
+def test_the_serve_cli_runs_on_the_card(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cuda", "--requests", "3", "--autotune",
+         "--live-trials", "2", "--store", str(tmp_path / "store.json")],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "qwen2.5-smoke on cuda:0" in out.stdout
+    assert "tuned live (trials=" in out.stdout

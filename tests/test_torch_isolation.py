@@ -54,7 +54,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.fleet.pool", "repro_torch.fleet.tuner",
                 "repro_torch.fleet.worker_main",
                 "repro_torch.launch.fleet", "repro_torch.launch.signals",
-                "repro_torch.launch.daemon"} | {
+                "repro_torch.launch.daemon", "repro_torch.launch.serve",
+                "repro_torch.configs", "repro_torch.configs.qwen2_5_3b",
+                "repro_torch.distributed.tuning",
+                "repro_torch.serve.engine", "repro_torch.serve.autotune"} | {
+        f"repro_torch.models.{m}"
+        for m in ("attention", "common", "config", "convert", "moe",
+                  "registry", "transformer")} | {
         f"repro_torch.service.{m}"
         for m in ("client", "daemon", "health", "journal", "protocol",
                   "shards", "tenants")} | {"repro_torch.service"} | {
@@ -143,6 +149,25 @@ def test_the_daemon_cli_runs_with_jax_and_repro_blocked(tmp_path):
             proc.kill()
             proc.wait(timeout=30)
     assert "blocked import" not in "".join(lines)
+
+
+def test_the_serve_cli_runs_with_jax_and_repro_blocked():
+    """``--help``, then a SMOKE model served on the CPU through the online
+    autotuner, with jax and the JAX package blocked."""
+    def run(*args):
+        return subprocess.run(
+            [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+             "repro_torch.launch.serve", *args],
+            capture_output=True, text=True, timeout=300)
+
+    helped = run("--help")
+    assert helped.returncode == 0, helped.stderr
+    assert "--device" in helped.stdout and "--autotune" in helped.stdout
+    served = run("--smoke", "--device", "cpu", "--requests", "3",
+                 "--autotune", "--live-trials", "2")
+    assert served.returncode == 0, served.stderr
+    assert "qwen2.5-smoke on cpu: 3 requests" in served.stdout
+    assert "blocked import" not in served.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -2,9 +2,8 @@
 ``repro_torch.launch.daemon``) against the JAX package's
 (``repro.service``).
 
-Every case of ``tests/test_service.py`` but five (the three
-``OnlineAutotuner`` cases and the two serve-kind daemon cases, which wait
-for the port's serving autotuner), the service cases of
+Every case of ``tests/test_service.py`` (its three ``OnlineAutotuner``
+cases with each package's own tuner and client), the service cases of
 ``tests/test_store_concurrency.py``, ``tests/test_problems.py::
 test_daemon_problem_submit_end_to_end`` and ``tests/test_transfer.py::
 test_daemon_surfaces_transfer_source_and_stats`` run through BOTH daemons
@@ -16,8 +15,9 @@ Beside parity: the wire constants and validators are the JAX package's
 source; a JAX client drives a live port daemon and a port client a live
 JAX daemon; a daemon over a pool measuring on the CPU answers through
 ``DeviceKernelEvaluator`` and refuses hardware it has no card of before
-any test; serve-kind and unported problem-kind submits and a JAX corpus
-are refused; the daemon CLI prices, measures on the CPU when asked, and
+any test and prices a serve-kind submit in its own process;
+unported problem-kind submits and a JAX corpus are refused; the daemon
+CLI prices, measures on the CPU when asked, and
 refuses to start without a card.  Every socket, join and subprocess has a
 timeout of its own.
 """
@@ -488,27 +488,17 @@ def _daemon_problem_submit_end_to_end(S, root):
             assert res["state"] == "done" and res["trials"] == 5
             repeat = c.submit_problem("t2", "kernel:matmul/2048", HW)
             assert repeat["state"] == "done" and repeat["trials"] == 0
-            if S.port:
-                # the serve problem kind waits for the serving autotuner
-                with pytest.raises(S.client.ServiceError) as ei:
-                    c.submit_problem("t", "serve:p1n1", HW,
-                                     params={"arch": "qwen2.5-3b"},
-                                     budget=4)
-                assert ei.value.code == S.P.E_UNKNOWN_PROBLEM
-                assert "not ported" in str(ei.value)
-            else:
-                r2 = c.submit_problem("t", "serve:p1n1", HW,
-                                      params={"arch": "qwen2.5-3b"},
-                                      budget=4)
-                res2 = c.result(r2["request_id"], timeout=120)
-                assert res2["state"] == "done" and res2["trials"] == 4
+            r2 = c.submit_problem("t", "serve:p1n1", HW,
+                                  params={"arch": "qwen2.5-3b"}, budget=4)
+            res2 = c.result(r2["request_id"], timeout=120)
+            assert res2["state"] == "done" and res2["trials"] == 4
             codes = []
             for spec in ("wat:thing", "no-colon"):
                 with pytest.raises(S.client.ServiceError) as ei:
                     c.submit_problem("t", spec, HW)
                 assert ei.value.code == S.P.E_UNKNOWN_PROBLEM
                 codes.append(ei.value.code)
-        return [r, res, repeat, codes]
+        return [r, res, repeat, r2, res2, codes]
     finally:
         _stop(d)
 
@@ -546,6 +536,131 @@ def _daemon_surfaces_transfer_source_and_stats(S, root):
     return [r, res, final_state(S, d)]
 
 
+# =============================================================================
+# test_service.py serve-kind cases
+# =============================================================================
+def _daemon_serve_kind_submit(S, root):
+    d = make_daemon(S, store=S.service.ShardedConfigStore(
+        os.path.join(root, "c"), n_shards=2))
+    r = d.handle(S.P.validate_request({
+        "op": "submit", "kind": "serve", "tenant": "engine-1",
+        "hardware": HW, "bucket": "p2n2", "bucket_shape": [40, 12],
+        "batch_sizes": [1, 2, 4, 8, 16], "max_seqs": [32, 64, 96, 128]}))
+    rid = r["request_id"]
+    drive(d, lambda: d._records[rid].state == "done")
+    res = d.handle({"op": "result", "request_id": rid})
+    assert res["ok"]
+    assert res["config"]["MAX_SEQ"] >= 40 + 12
+    entry = d.store.get("serve_online", "p2n2", HW, kind="serve")
+    assert entry is not None and entry.config == res["config"]
+    return [r, res, final_state(S, d)]
+
+
+def _hwspec(S):
+    if S.port:
+        from repro_torch.core import hwspec
+    else:
+        from repro.core import hwspec
+    return hwspec
+
+
+def _daemon_serve_kind_unregistered_hardware_ships_spec(S, root):
+    """A replica labelled outside the registry ships its pricing spec (each
+    package's own fields); without it the submit is refused."""
+    hwspec = _hwspec(S)
+    d = make_daemon(S)
+    base = dict(op="submit", kind="serve", tenant="replica",
+                hardware="cpu", bucket="p2n2", bucket_shape=[40, 12],
+                batch_sizes=[1, 2, 4, 8], max_seqs=[64, 96, 128])
+    r0 = d.handle(S.P.validate_request(dict(base)))
+    assert not r0["ok"] and r0["code"] == S.P.E_BAD_REQUEST
+    spec = dataclasses.replace(hwspec.SPECS[HW], name="cpu")
+    r = d.handle(S.P.validate_request(dict(
+        base, hardware_spec=dataclasses.asdict(spec))))
+    rid = r["request_id"]
+    drive(d, lambda: d._records[rid].state == "done")
+    res = d.handle({"op": "result", "request_id": rid})
+    assert res["ok"] and res["config"]["MAX_SEQ"] >= 40 + 12
+    entry = d.store.get("serve_online", "p2n2", hwspec.fingerprint(spec),
+                        kind="serve")
+    assert entry is not None and entry.config == res["config"]
+    r2 = d.handle(S.P.validate_request(dict(
+        base, hardware_spec=dataclasses.asdict(spec))))
+    assert r2["state"] == "done" and r2["trials"] == 0
+    return [r0["code"], r, res, r2, hwspec.fingerprint(spec),
+            final_state(S, d)]
+
+
+def _serve_tuner(S, service, hardware_name=HW, **kw):
+    if S.port:
+        import repro_torch.serve.autotune as A
+    else:
+        import repro.serve.autotune as A
+    hw = _hwspec(S).get(HW)
+    stats = A.ServeWorkloadStats()
+    backend = A.SyntheticServeBackend(hw, stats, seed=1)
+    return backend, A.OnlineAutotuner(
+        backend, store=S.tuning.ConfigStore(), space=A.serve_space(), hw=hw,
+        stats=stats, hardware_name=hardware_name, service=service,
+        max_live_trials=6, **kw)
+
+
+def _serve_requests(S, n=8, plen=20, new=8):
+    if S.port:
+        from repro_torch.serve.engine import Request
+    else:
+        from repro.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(1, 100, size=plen),
+                    max_new_tokens=new) for i in range(n)]
+
+
+def _report(rep):
+    return [rep.bucket, rep.drift, rep.reused, rep.live_trials, rep.config,
+            [list(h) for h in rep.history], rep.via_service]
+
+
+def _online_autotuner_routes_via_service(S, root):
+    d = _live(S, root)
+    try:
+        backend, tuner = _serve_tuner(S, f"127.0.0.1:{d.port}")
+        _, rep = tuner.serve(_serve_requests(S))
+        assert rep.via_service and not rep.reused and rep.live_trials == 0
+        assert backend.measure_calls == 0
+        _, rep2 = tuner.serve(_serve_requests(S))
+        assert not rep2.drift
+        tuner._active = None                 # force a re-ensure
+        _, rep3 = tuner.serve(_serve_requests(S))
+        assert rep3.reused and not rep3.via_service
+        return [_report(r) for r in (rep, rep2, rep3)] + [
+            store_state(S, tuner.store)]
+    finally:
+        _stop(d)
+
+
+def _online_autotuner_falls_back_when_unreachable(S, root):
+    backend, tuner = _serve_tuner(S, "127.0.0.1:1", service_timeout=2.0)
+    _, rep = tuner.serve(_serve_requests(S))
+    assert not rep.via_service and rep.live_trials > 0
+    assert backend.measure_calls == rep.live_trials
+    return [_report(rep), backend.measure_calls]
+
+
+def _online_autotuner_routes_with_unregistered_hardware(S, root):
+    d = _live(S, root)
+    try:
+        backend, tuner = _serve_tuner(S, f"127.0.0.1:{d.port}",
+                                      hardware_name="cpu")
+        _, rep = tuner.serve(_serve_requests(S))
+        assert rep.via_service and rep.live_trials == 0
+        assert backend.measure_calls == 0
+        assert tuner.store.get(tuner.space.name, rep.bucket, "cpu",
+                               kind="serve") is not None
+        return [_report(rep), store_state(S, tuner.store)]
+    finally:
+        _stop(d)
+
+
 CASES = {f.__name__[1:]: f for f in (
     _protocol_roundtrip, _protocol_rejects_garbage,
     _protocol_submit_kernel_validation, _protocol_submit_serve_validation,
@@ -565,7 +680,12 @@ CASES = {f.__name__[1:]: f for f in (
     _concurrent_daemons_share_sharded_corpus,
     _sharded_corpus_shard_count_agreement,
     _daemon_problem_submit_end_to_end,
-    _daemon_surfaces_transfer_source_and_stats)}
+    _daemon_surfaces_transfer_source_and_stats,
+    _daemon_serve_kind_submit,
+    _daemon_serve_kind_unregistered_hardware_ships_spec,
+    _online_autotuner_routes_via_service,
+    _online_autotuner_falls_back_when_unreachable,
+    _online_autotuner_routes_with_unregistered_hardware)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -848,18 +968,63 @@ def test_a_priced_daemon_has_no_cards():
 # Refusals
 # =============================================================================
 def test_a_serve_kind_submit_is_refused_naming_the_serving_autotuner():
+    """A serve-kind submit whose bucket is no serve bucket key is refused
+    before it becomes a job, by the serving autotuner's ``ServeProblem``
+    (the serve kind itself is answered: ``_daemon_serve_kind_submit``)."""
     d = make_daemon(PORT)
     r = d.handle(PORT.P.validate_request({
         "op": "submit", "kind": "serve", "tenant": "engine-1",
-        "hardware": HW, "bucket": "p2n2", "bucket_shape": [40, 12],
+        "hardware": HW, "bucket": "p2x2", "bucket_shape": [40, 12],
         "batch_sizes": [1, 2, 4], "max_seqs": [32, 64]}))
     assert not r["ok"] and r["code"] == PORT.P.E_BAD_REQUEST
-    assert "serving autotuner" in r["error"]
+    assert "serve problem name must be a bucket key" in r["error"]
     assert d._records == {} and d.tenants.get("engine-1").rejected == 1
 
 
+def test_a_measuring_daemon_prices_a_serve_kind_submit_in_its_own_process(
+        tmp_path):
+    """Over subprocess lanes that measure on the CPU, a serve-kind request
+    never reaches a lane: the pool prices its tests in the daemon's
+    process, on the cost model, as the JAX daemon prices them; the repeat
+    is a store hit.  Kernel requests still go to the lane."""
+    pool = PORT.fleet.SubprocessWorkerPool(devices=["cpu"])
+    d = PORT.service.TuningDaemon(
+        pool, PORT.service.ShardedConfigStore(str(tmp_path / "c"),
+                                              n_shards=2),
+        default_trial_budget=6)
+    d.start()
+    try:
+        with PORT.client.ServiceClient(d.address, timeout=30) as c:
+            r = c.submit_serve("engine-1", "h100_sxm", bucket="p2n2",
+                               bucket_shape=[40, 12],
+                               batch_sizes=[1, 2, 4, 8, 16],
+                               max_seqs=[32, 64, 96, 128])
+            res = c.result(r["request_id"], timeout=120)
+            assert res["trials"] == 6 and res["config"]["MAX_SEQ"] >= 52
+            again = c.submit_serve("engine-1", "h100_sxm", bucket="p2n2",
+                                   bucket_shape=[40, 12],
+                                   batch_sizes=[1, 2, 4, 8, 16],
+                                   max_seqs=[32, 64, 96, 128])
+            assert again["state"] == "done" and again["trials"] == 0
+            st = c.stats()
+        assert st["lanes"][0]["launches"] == {} or not any(
+            st["lanes"][0]["launches"].values())
+        priced = PORT.tuning.problem.make_problem(
+            "serve", "p2n2", shape=(40, 12), batch_sizes=(1, 2, 4, 8, 16),
+            max_seqs=(32, 64, 96, 128)).make_evaluator(
+                PORT.service.daemon.hwspec.get("h100_sxm"))
+        space = PORT.tuning.problem.make_problem(
+            "serve", "p2n2", batch_sizes=(1, 2, 4, 8, 16),
+            max_seqs=(32, 64, 96, 128)).space()
+        assert res["runtime"] == priced(space.index_of(res["config"]),
+                                        False)[0]
+        assert d.store.provenance == "cpu"
+    finally:
+        _stop(d)
+
+
 @pytest.mark.parametrize("spec", ["sharding:qwen2.5-3b/train_4k",
-                                  "serve:p1n1"])
+                                  "sharding:gemma-2b/prefill_32k"])
 def test_a_problem_of_a_kind_not_ported_is_refused(spec):
     d = make_daemon(PORT)
     r = d.handle(PORT.P.validate_request({

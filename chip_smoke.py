@@ -74,7 +74,17 @@ Then, kernel by kernel (the table ``PORTS``):
              with the model's kernel call patched to the plain version;
              gemma-2b (2 layers) and deepseek-v2-236b (1 layer) at full
              width; ``OnlineAutotuner`` over ``EngineBackend`` (tune, reuse,
-             drift); ``python -m repro_torch.launch.serve``.
+             drift); ``python -m repro_torch.launch.serve``.  Then the rest
+             of the model zoo at full width and depth (``phase_serve_zoo``):
+             zamba2-2.7b and xlstm-125m through ``ServeEngine`` (8 requests,
+             prompts a multiple of 128), seamless-m4t-large-v2 through a
+             greedy loop over its prefill and decode (4 requests with 4096
+             frames each); attention launches read around each prefill (9
+             a zamba2 prefill, 48 a seamless one of which 24 not causal,
+             none for xlstm, none in decode, the plain version never
+             called), layer 0's attention inputs and the first wave's
+             logits through the plain version, the kernel timed at those
+             inputs, a prefill and 8 decode steps profiled an arch.
 11. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
@@ -161,6 +171,37 @@ SERVE_TUNE_RANGE = (256, 32)             # the bucketer's max prompt, max new
 SERVE_TUNE_SPACE = {"batch_sizes": (1, 2, 4, 8),
                     "max_seqs": (64, 128, 256, 512)}
 SERVE_LIVE_TRIALS = 4
+# phase 10 also serves the rest of the model zoo at full width and depth
+# (bf16, random weights from SERVE_SEED): zamba2-2.7b and xlstm-125m through
+# ServeEngine, SERVE_N requests in waves of SERVE_BATCH, SERVE_NEW new tokens
+# each.  Their chunked scans take a prompt of at most 128 tokens or a
+# multiple of 128 (the JAX package asserts it, and the port refuses the
+# rest: ROADMAP.md, queue 3), and the engine left-pads a wave to its longest
+# prompt; so their prompt lengths are drawn from the multiples of 128 in
+# SERVE_PROMPT
+SERVE_RECURRENT = ("zamba2-2.7b", "xlstm-125m")
+SERVE_CHUNK = 128
+# seamless-m4t-large-v2 (24 + 24 layers): the engine feeds tokens only, so a
+# greedy loop over Model.prefill and Model.decode with the engine's
+# left-padding serves 4 requests, each with seeded frames (frontend_len,
+# frontend_dim) fp32, a prompt of 16-64 tokens and 16 new tokens
+SERVE_ENCDEC = "seamless-m4t-large-v2"
+SERVE_ENCDEC_N = 4
+SERVE_ENCDEC_PROMPT = (16, 64)
+SERVE_ENCDEC_NEW = 16
+SERVE_PROFILE_STEPS = 8                  # decode steps profiled an arch
+# zamba2-2.7b in bf16 with random weights carries a last-bit rounding flip
+# of one superblock's attention output into every later one: its bf16
+# logits through the kernel lie 6.4e-2 from those through the plain version
+# and 7.6e-2 from those through PyTorch's SDPA (fp32-accurate, a third
+# route), and with the same weights in fp32 2.6e-5 and 2.4e-5 (NVIDIA H100
+# 80GB HBM3, 700 W; this phase reports them under "fp32_check").  So its
+# kernel-vs-plain logits are held in fp32, the same weights cast, within
+# SERVE_FP32_LOGIT_TOL (about 40x what was measured; a wrong head, mask or
+# scale moves logits by their own size); its bf16 difference is reported
+# and its greedy tokens held to the margin rule
+SERVE_FP32_CHECK = ("zamba2-2.7b",)
+SERVE_FP32_LOGIT_TOL = 1e-3
 # the head dims the check phase holds attention at beside the registry's:
 # every compiled one, and padded ones between them (1 to 256)
 ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
@@ -1054,7 +1095,7 @@ def _library(port: Port):
     }.get(port.name)
 
 
-def _sdpa_backend(q, k, v) -> str:
+def _sdpa_backend(q, k, v, causal: bool = True) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these inputs
     (a private PyTorch call; "unknown" where it is missing)."""
     import torch
@@ -1063,7 +1104,7 @@ def _sdpa_backend(q, k, v) -> str:
         from torch.nn.attention import SDPBackend
 
         return SDPBackend(torch._fused_sdp_choice(
-            q, k, v, None, 0.0, True)).name
+            q, k, v, None, 0.0, causal)).name
     except Exception as exc:      # noqa: BLE001 - informational only
         return f"unknown ({type(exc).__name__})"
 
@@ -1558,14 +1599,15 @@ def phase_service(records, device):
     return out
 
 
-def _serve_requests(rng, n: int, lo: int, hi: int, new: int, vocab: int):
-    """``n`` requests, prompt lengths drawn in [lo, hi], tokens in
-    [1, vocab)."""
+def _serve_requests(rng, n: int, lo: int, hi: int, new: int, vocab: int,
+                    step: int = 1):
+    """``n`` requests, prompt lengths drawn from the multiples of ``step``
+    in [lo, hi], tokens in [1, vocab)."""
     import numpy as np
 
     from repro_torch.serve.engine import Request
 
-    lens = rng.integers(lo, hi + 1, size=n)
+    lens = step * rng.integers(lo // step, hi // step + 1, size=n)
     return [Request(uid=i, prompt=rng.integers(1, vocab, size=int(n_tok))
                     .astype(np.int32), max_new_tokens=new)
             for i, n_tok in enumerate(lens)]
@@ -1650,7 +1692,7 @@ def _check_tokens(out, requests, vocab: int, name: str) -> None:
             raise AssertionError(f"{name}: request {r.uid} generated {toks}")
 
 
-def _serve_kernel_at(q, k, v, hw, flush) -> Dict:
+def _serve_kernel_at(q, k, v, hw, flush, causal: bool = True) -> Dict:
     """The kernel (the wrapper's defaults, as the model calls it), its plain
     version and the library call at the inputs serving gave it, and the
     bound there."""
@@ -1661,14 +1703,15 @@ def _serve_kernel_at(q, k, v, hw, flush) -> Dict:
 
     port = next(p for p in PORTS if p.name == "attention")
     b, h, s, d = q.shape
-    inp = AttentionInput(batch=b, heads=h, seq=s, head_dim=d)
-    out = {"shape": inp.tag,
-           "ms": time_ms(lambda: K.flash_attention(q, k, v), 20, flush),
-           "plain_ms": time_ms(lambda: K.flash_attention_plain(q, k, v), 3,
-                               flush),
+    inp = AttentionInput(batch=b, heads=h, seq=s, head_dim=d, causal=causal)
+    out = {"shape": inp.tag, "causal": causal,
+           "ms": time_ms(lambda: K.flash_attention(q, k, v, causal=causal),
+                         20, flush),
+           "plain_ms": time_ms(lambda: K.flash_attention_plain(
+               q, k, v, causal=causal), 3, flush),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True), 20, flush),
-           "library_backend": _sdpa_backend(q, k, v)}
+               q, k, v, is_causal=causal), 20, flush),
+           "library_backend": _sdpa_backend(q, k, v, causal)}
     out.update(bound(port, inp, hw))
     return out
 
@@ -1709,6 +1752,190 @@ def _busy_share(fn) -> Dict:
                     for us, k, n in rows[:8]]}
 
 
+class _AttentionRoute:
+    """While open, the model's attention calls go to ``route`` (default:
+    the kernel's wrapper) and are tallied by their mask; the kernel's
+    plain version is counted wherever it is called.  The launches
+    themselves are the wrapper's own count."""
+
+    def __init__(self, route=None):
+        import repro_torch.models.attention as A
+        from repro_torch.kernels.attention import kernel as K
+
+        self.A, self.K = A, K
+        self.plain, self.route = K.flash_attention_plain, route
+        self.masks = {True: 0, False: 0}
+        self.plain_calls = 0
+
+    def __enter__(self):
+        K, route = self.K, self.route or self.K.flash_attention
+
+        def counted_plain(*a, **kw):
+            self.plain_calls += 1
+            return self.plain(*a, **kw)
+
+        def tallied(q, k, v, causal=True, **kw):
+            self.masks[causal] += 1
+            return route(q, k, v, causal=causal, **kw)
+
+        K.flash_attention_plain = counted_plain
+        self.A.flash_attention = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.K.flash_attention_plain = self.plain
+        self.A.flash_attention = self.K.flash_attention
+
+
+def _expected_launches(cfg) -> Tuple[int, int]:
+    """Attention kernel launches a prefill of a zoo arch, (causal, not):
+    Zamba2's shared block once a superblock, the encoder-decoder's two
+    self-attentions once a layer each, none in xLSTM."""
+    if cfg.mamba_per_attn:
+        return cfg.n_layers // cfg.mamba_per_attn, 0
+    if cfg.enc_layers:
+        return cfg.dec_layers, cfg.enc_layers
+    return 0, 0
+
+
+def _plain_route_check(prefill, first, attn_tol, logit_tol: Optional[float]
+                       ) -> Tuple[Dict, Dict, tuple]:
+    """``prefill`` (the first wave's batch, through the model) once more
+    with the model's kernel call routed to the plain version: layer 0's
+    attention inputs through the kernel against the plain version, and the
+    wave's last logits against the kernel route's (``first["logits"]``).
+    Raises past attention's tolerance, past ``logit_tol`` (None: the
+    difference is reported, not held), or where a greedy token differs
+    with a top-2 margin above twice the logits' difference.  Returns
+    (layer 0, logits, layer 0's (q, k, v, causal)), the last None for a
+    model without attention."""
+    from repro_torch.kernels.attention import kernel as K
+
+    captured = {}
+    plain = K.flash_attention_plain
+
+    def plain_route(q, k, v, causal=True):
+        if not captured:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                            causal=causal)
+        return plain(q, k, v, causal=causal)
+
+    with _AttentionRoute(plain_route):
+        logits_plain = prefill()
+    layer0, qkv = None, None
+    if captured:
+        q, k, v, causal = (captured[n] for n in ("q", "k", "v", "causal"))
+        ref = plain(q, k, v, causal=causal)
+        got = K.flash_attention(q, k, v, causal=causal)
+        layer0 = {"shape": list(q.shape), "causal": causal,
+                  "max_abs_err": float((got - ref).abs().max()),
+                  "max_rel_err": float((got - ref).abs().max()
+                                       / ref.abs().max()),
+                  "tolerance": attn_tol}
+        if layer0["max_rel_err"] > attn_tol:
+            raise AssertionError(f"layer 0 attention: {layer0}")
+        qkv = (q, k, v, causal)
+    lk, lp = first["logits"][:, -1].float(), logits_plain[:, -1].float()
+    diff = float((lk - lp).abs().max())
+    top2 = lp.topk(2, dim=-1).values
+    agree = (lk.argmax(-1) == lp.argmax(-1)).tolist()
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    logits = {"max_abs_diff": diff,
+              "max_rel_diff": diff / float(lp.abs().max()),
+              "tolerance": logit_tol, "first_tokens_agree": agree,
+              "top2_margins": margins}
+    if (logit_tol is not None and logits["max_rel_diff"] > logit_tol) or any(
+            not ok and m > 2 * diff for ok, m in zip(agree, margins)):
+        raise AssertionError(f"wave 1 logits: {logits}")
+    return layer0, logits, qkv
+
+
+def _sdpa_route(q, k, v, causal=True, **kw):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def _fp32_route_check(name: str, model, params, first, attn_tol) -> Dict:
+    """The first wave's prefill with the same weights cast to fp32, through
+    the kernel and through the plain version: ``_plain_route_check`` held
+    to ``SERVE_FP32_LOGIT_TOL``.  Beside it, reported: the kernel route's
+    logits against a third fp32-accurate attention (PyTorch's SDPA) in
+    bf16 and in fp32, the spread any two such routes show."""
+    import copy
+
+    import torch
+
+    from repro_torch.models.registry import build_model
+
+    def spread(prefill, logits) -> float:
+        with _AttentionRoute(_sdpa_route):
+            other = prefill()[:, -1].float()
+        return float((logits[:, -1].float() - other).abs().max()
+                     / other.abs().max())
+
+    tokens = {"tokens": first["tokens"]}
+    out = {"bf16_kernel_vs_sdpa": spread(
+        lambda: model.prefill(params, tokens, SERVE_MAX_SEQ)[0],
+        first["logits"])}
+    model32 = build_model(model.cfg.scaled(dtype="float32"))
+    params32 = copy.deepcopy(params).float()
+    prefill = lambda: model32.prefill(           # noqa: E731
+        params32, tokens, SERVE_MAX_SEQ)[0]
+    first32 = {"logits": prefill()}
+    out["layer0"], out["logits"], _ = _plain_route_check(
+        prefill, first32, attn_tol, SERVE_FP32_LOGIT_TOL)
+    out["fp32_kernel_vs_sdpa"] = spread(prefill, first32["logits"])
+    _log_checks(f"{name} in fp32", out["layer0"], out["logits"])
+    log(f"[serve] {name}: logits through the kernel against SDPA (fp32, a "
+        f"third route): bf16 {out['bf16_kernel_vs_sdpa']:.4e}, fp32 "
+        f"{out['fp32_kernel_vs_sdpa']:.4e}")
+    del params32, first32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_checks(name: str, layer0, logits) -> None:
+    head = (f"layer 0 attention {tuple(layer0['shape'])} "
+            f"({'causal' if layer0['causal'] else 'not causal'}): kernel vs "
+            f"plain max abs {layer0['max_abs_err']:.3e}, rel "
+            f"{layer0['max_rel_err']:.3e} (tolerance {layer0['tolerance']});"
+            if layer0 else "no attention;")
+    log(f"[serve] {name}: {head} wave 1 logits through the plain version: "
+        f"max abs diff {logits['max_abs_diff']:.4e}, rel "
+        f"{logits['max_rel_diff']:.4e} (tolerance "
+        f"{logits['tolerance'] or 'none: reported'}); "
+        f"greedy first tokens agree {logits['first_tokens_agree']} (top-2 "
+        f"margins {['%.4f' % m for m in logits['top2_margins']]})")
+
+
+def _profile(name: str, prefill, decode_step) -> Dict:
+    """One prefill, then ``SERVE_PROFILE_STEPS`` greedy decode steps, each
+    under ``torch.profiler`` (``_busy_share``)."""
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill()
+
+    def run_decode():
+        tok = state["logits"][:, -1].argmax(-1)
+        for _ in range(SERVE_PROFILE_STEPS):
+            logits, state["cache"] = decode_step(state["cache"], tok[:, None])
+            tok = logits[:, -1].argmax(-1)
+            tok.tolist()                      # the engine's host read
+    profiles = {"prefill": _busy_share(run_prefill),
+                f"decode_{SERVE_PROFILE_STEPS}_steps": _busy_share(run_decode)}
+    for what, pr in profiles.items():
+        share = pr["busy_share"]
+        log(f"[serve] {name} profile {what}: wall {pr['wall_s']:.4f} s, card "
+            "busy " + (f"{pr['device_s']:.4f} s ({share:.1%})"
+                       if not isinstance(share, str) else share)
+            + f", {pr['launches']} kernels; top: " + "; ".join(
+                f"{t['kernel']} {t['ms']:.3f} ms x{t['count']}"
+                for t in pr["top"][:4]))
+    return profiles
+
+
 def phase_serve(hw, device) -> Dict:
     """Serving on the card, through ``ServeEngine``, ``OnlineAutotuner``
     and ``python -m repro_torch.launch.serve``.  Raises when a wave
@@ -1723,7 +1950,6 @@ def phase_serve(hw, device) -> Dict:
     import numpy as np
     import torch
 
-    import repro_torch.models.attention as A
     from repro_torch.configs import ARCHS
     from repro_torch.core.evaluate import L2_FLUSH_BYTES
     from repro_torch.kernels.attention import kernel as K
@@ -1757,22 +1983,15 @@ def phase_serve(hw, device) -> Dict:
 
     # 1. the main path: launches zeroed just before, read just after; the
     # plain version counted wherever it is called
-    plain_calls = [0]
-    plain = K.flash_attention_plain
-
-    def counted_plain(*a, **kw):
-        plain_calls[0] += 1
-        return plain(*a, **kw)
-
     clock = _WaveClock(engine)
-    K.flash_attention_plain = counted_plain
     K.flash_attention.launches = 0
     t0 = time.perf_counter()
     try:
-        served = engine.generate(reqs)
+        with _AttentionRoute() as route:
+            served = engine.generate(reqs)
     finally:
-        K.flash_attention_plain = plain
         clock.close()
+    plain_calls = route.plain_calls
     launches = K.flash_attention.launches
     out["seconds"] = time.perf_counter() - t0
     _log_waves(SERVE_ARCH, clock.waves)
@@ -1782,99 +2001,39 @@ def phase_serve(hw, device) -> Dict:
     log(f"[serve] {SERVE_ARCH}: {len(reqs)} requests, {n_tokens} tokens in "
         f"{out['seconds']:.3f} s ({n_tokens / out['seconds']:.1f} tokens/s);"
         f" attention kernel launches {launches} for {prefills} prefills of "
-        f"{cfg.n_layers} layers; plain version called {plain_calls[0]} times")
-    if launches != cfg.n_layers * prefills or plain_calls[0]:
+        f"{cfg.n_layers} layers; plain version called {plain_calls} times")
+    if launches != cfg.n_layers * prefills or plain_calls:
         raise AssertionError(f"attention: {launches} launches for "
-                             f"{prefills} prefills, {plain_calls[0]} plain "
+                             f"{prefills} prefills, {plain_calls} plain "
                              "calls")
     out.update(waves=clock.waves, tokens=n_tokens, launches=launches,
-               plain_calls=plain_calls[0], prefills=prefills)
+               plain_calls=plain_calls, prefills=prefills)
 
-    # 2. layer 0's attention inputs of wave 1 through the kernel and the
-    # plain version; then wave 1's prefill with the model's kernel call
-    # patched to the plain version
+    # 2. wave 1's prefill with the model's kernel call routed to the plain
+    # version: layer 0's attention inputs through both, and the logits;
+    # the kernel timed at those inputs; wave 1's prefill and 8 decode steps
+    # profiled
     first = clock.first
-    captured = {}
-
-    def plain_route(q, k, v, causal=True):
-        if not captured:
-            captured.update(q=q.clone(), k=k.clone(), v=v.clone())
-        return plain(q, k, v, causal=causal)
-
-    A.flash_attention = plain_route
-    try:
-        logits_plain, _ = model.prefill(params, {"tokens": first["tokens"]},
-                                        SERVE_MAX_SEQ)
-    finally:
-        A.flash_attention = K.flash_attention
-    q, k, v = captured["q"], captured["k"], captured["v"]
-    ref = plain(q, k, v)
-    got = K.flash_attention(q, k, v)
-    layer0 = {"shape": list(q.shape),
-              "max_abs_err": float((got - ref).abs().max()),
-              "max_rel_err": float((got - ref).abs().max()
-                                   / ref.abs().max()),
-              "tolerance": attn_tol}
-    lk, lp = first["logits"][:, -1].float(), logits_plain[:, -1].float()
-    diff = float((lk - lp).abs().max())
-    top2 = lp.topk(2, dim=-1).values
-    agree = (lk.argmax(-1) == lp.argmax(-1)).tolist()
-    margins = (top2[:, 0] - top2[:, 1]).tolist()
-    logits = {"max_abs_diff": diff,
-              "max_rel_diff": diff / float(lp.abs().max()),
-              "tolerance": SERVE_LOGIT_TOL, "first_tokens_agree": agree,
-              "top2_margins": margins}
-    log(f"[serve] layer 0 attention {tuple(q.shape)}: kernel vs plain max "
-        f"abs {layer0['max_abs_err']:.3e}, rel {layer0['max_rel_err']:.3e} "
-        f"(tolerance {attn_tol}); wave 1 logits through the plain version: "
-        f"max abs diff {diff:.4e}, rel {logits['max_rel_diff']:.4e} "
-        f"(tolerance {SERVE_LOGIT_TOL}); greedy first tokens agree {agree} "
-        f"(top-2 margins {['%.4f' % m for m in margins]})")
-    if layer0["max_rel_err"] > attn_tol:
-        raise AssertionError(f"layer 0 attention: {layer0}")
-    # a greedy token may flip only where its margin lies within the
-    # logits' difference
-    if logits["max_rel_diff"] > SERVE_LOGIT_TOL or any(
-            not ok and m > 2 * diff for ok, m in zip(agree, margins)):
-        raise AssertionError(f"wave 1 logits: {logits}")
+    before = K.flash_attention.launches
+    layer0, logits, qkv = _plain_route_check(
+        lambda: model.prefill(params, {"tokens": first["tokens"]},
+                              SERVE_MAX_SEQ)[0], first, attn_tol,
+        SERVE_LOGIT_TOL)
+    _log_checks(SERVE_ARCH, layer0, logits)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=device)
-    before = K.flash_attention.launches
-    timing = _serve_kernel_at(q, k, v, hw, flush)
-    # where a wave's time goes: wave 1's prefill, then 8 decode steps, each
-    # under the profiler (the card's kernel time against the wall clock)
-    state = {}
-
-    def run_prefill():
-        state["logits"], state["cache"] = model.prefill(
-            params, {"tokens": first["tokens"]}, SERVE_MAX_SEQ)
-
-    def run_decode():
-        tok = state["logits"][:, -1].argmax(-1)
-        for _ in range(8):
-            logits, state["cache"] = model.decode(
-                params, state["cache"], {"tokens": tok[:, None]})
-            tok = logits[:, -1].argmax(-1)
-            tok.tolist()                      # the engine's host read
-    profiles = {"prefill": _busy_share(run_prefill),
-                "decode_8_steps": _busy_share(run_decode)}
-    del state
+    timing = _serve_kernel_at(*qkv[:3], hw, flush)
+    out["profile"] = _profile(
+        SERVE_ARCH, lambda: model.prefill(params, {"tokens": first["tokens"]},
+                                          SERVE_MAX_SEQ),
+        lambda cache, tok: model.decode(params, cache, {"tokens": tok}))
     K.flash_attention.launches = before        # comparisons do not count
-    for what, pr in profiles.items():
-        share = pr["busy_share"]
-        log(f"[serve] profile {what}: wall {pr['wall_s']:.4f} s, card busy "
-            + (f"{pr['device_s']:.4f} s ({share:.1%})"
-               if not isinstance(share, str) else share)
-            + f", {pr['launches']} kernels; top: " + "; ".join(
-                f"{t['kernel']} {t['ms']:.3f} ms x{t['count']}"
-                for t in pr["top"][:4]))
-    out["profile"] = profiles
     log(f"[serve] attention at {timing['shape']}: kernel {timing['ms']:.4f}"
         f" ms, plain {timing['plain_ms']:.4f} ms, library "
         f"{timing['library_ms']:.4f} ms ({timing['library_backend']}), bound"
         f" {timing['bound_ms']:.4f} ms ({timing['bound_unit']})")
     out.update(layer0=layer0, logits=logits, attention_at_serve=timing)
-    del flush, q, k, v, ref, got, captured, first, clock
+    del flush, qkv, first, clock
     torch.cuda.empty_cache()
 
     # 3. full width, depth cut
@@ -1978,6 +2137,247 @@ def phase_serve(hw, device) -> Dict:
     out["cli"] = {"seconds": cli_s, "line": line}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[time] serve {out['phase_s']:.1f} s")
+    return out
+
+
+def _serve_engine_arch(name: str, hw, device, flush, attn_tol) -> Dict:
+    """One zoo arch at full width and depth through ``ServeEngine``:
+    ``SERVE_N`` requests of prompts a multiple of ``SERVE_CHUNK``, the
+    launches read around each prefill, the plain-route checks, the kernel
+    at layer 0's shape, the profile."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = ARCHS[name]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device)
+                        .manual_seed(SERVE_SEED), device=device)
+    torch.cuda.synchronize()
+    row = {"arch": name, "reduced": "nothing", "params": model.param_count(),
+           "init_s": time.perf_counter() - t0}
+    log(f"[serve] {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{row['params'] / 1e9:.3f} B parameters ({cfg.dtype}) drawn in "
+        f"{row['init_s']:.2f} s")
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                         params=params, device=device)
+    engine.warmup()
+    reqs = _serve_requests(np.random.default_rng(SERVE_SEED), SERVE_N,
+                           *SERVE_PROMPT, SERVE_NEW, cfg.vocab_size,
+                           step=SERVE_CHUNK)
+
+    # the main path: launches zeroed just before each prefill and read just
+    # after; none may come from a decode step
+    counts, decode_launches = [], [0]
+
+    def prefill(params_, batch, max_seq):
+        K.flash_attention.launches = 0
+        out = model.prefill(params_, batch, max_seq=max_seq)
+        counts.append(K.flash_attention.launches)
+        return out
+
+    def decode(params_, cache, batch):
+        before = K.flash_attention.launches
+        out = model.decode(params_, cache, batch)
+        decode_launches[0] += K.flash_attention.launches - before
+        return out
+
+    engine.model = types.SimpleNamespace(prefill=prefill, decode=decode)
+    engine._decode = decode
+    clock = _WaveClock(engine)
+    t0 = time.perf_counter()
+    try:
+        with _AttentionRoute() as route:
+            served = engine.generate(reqs)
+    finally:
+        clock.close()
+    row["seconds"] = time.perf_counter() - t0
+    _log_waves(name, clock.waves)
+    _check_tokens(served, reqs, cfg.padded_vocab, name)
+    n_tokens = sum(len(v) for v in served.values())
+    causal, full = _expected_launches(cfg)
+    log(f"[serve] {name}: {len(reqs)} requests, {n_tokens} tokens in "
+        f"{row['seconds']:.3f} s ({n_tokens / row['seconds']:.1f} tokens/s);"
+        f" attention kernel launches a prefill {counts} ({causal + full} "
+        f"expected), in decode {decode_launches[0]}; plain version called "
+        f"{route.plain_calls} times")
+    if (counts != [causal + full] * len(clock.waves) or decode_launches[0]
+            or route.plain_calls or route.masks[False] != full * len(counts)):
+        raise AssertionError(f"{name}: launches {counts} a prefill, "
+                             f"{decode_launches[0]} in decode, masks "
+                             f"{route.masks}, {route.plain_calls} plain calls")
+    row.update(waves=clock.waves, tokens=n_tokens, launches=sum(counts),
+               launches_a_prefill=counts, plain_calls=route.plain_calls)
+
+    first = clock.first
+    before = K.flash_attention.launches
+    fp32 = name in SERVE_FP32_CHECK
+    row["layer0"], row["logits"], qkv = _plain_route_check(
+        lambda: model.prefill(params, {"tokens": first["tokens"]},
+                              SERVE_MAX_SEQ)[0], first, attn_tol,
+        None if fp32 else SERVE_LOGIT_TOL)
+    _log_checks(name, row["layer0"], row["logits"])
+    if fp32:
+        row["fp32_check"] = _fp32_route_check(name, model, params, first,
+                                              attn_tol)
+    if qkv is not None:
+        row["attention"] = _serve_kernel_at(*qkv[:3], hw, flush, qkv[3])
+    row["profile"] = _profile(
+        name, lambda: model.prefill(params, {"tokens": first["tokens"]},
+                                    SERVE_MAX_SEQ),
+        lambda cache, tok: model.decode(params, cache, {"tokens": tok}))
+    K.flash_attention.launches = before        # comparisons do not count
+    del engine, params, clock, first, qkv
+    torch.cuda.empty_cache()
+    return row
+
+
+def _serve_encdec(hw, device, flush, attn_tol) -> Dict:
+    """seamless-m4t-large-v2 at full width and depth: a greedy loop over
+    ``Model.prefill`` and ``Model.decode`` with the engine's left-padding,
+    seeded frames a request; as ``_serve_engine_arch`` otherwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import synchronize
+
+    name = SERVE_ENCDEC
+    cfg = ARCHS[name]
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=device)
+    frames = torch.randn((SERVE_ENCDEC_N, cfg.frontend_len, cfg.frontend_dim),
+                         generator=gen, device=device)
+    torch.cuda.synchronize()
+    row = {"arch": name, "reduced": "nothing", "params": model.param_count(),
+           "init_s": time.perf_counter() - t0,
+           "frames": list(frames.shape)}
+    log(f"[serve] {name}: {cfg.enc_layers} + {cfg.dec_layers} layers, "
+        f"d_model {cfg.d_model}, {row['params'] / 1e9:.3f} B parameters "
+        f"({cfg.dtype}) and frames {tuple(frames.shape)} fp32 drawn in "
+        f"{row['init_s']:.2f} s")
+    reqs = _serve_requests(np.random.default_rng(SERVE_SEED), SERVE_ENCDEC_N,
+                           *SERVE_ENCDEC_PROMPT, SERVE_ENCDEC_NEW,
+                           cfg.vocab_size)
+    plen = max(len(r.prompt) for r in reqs)
+    max_seq = plen + SERVE_ENCDEC_NEW
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt      # the engine's left-pad
+    batch = {"tokens": torch.from_numpy(toks).to(device), "frames": frames}
+
+    def serve() -> Tuple[Dict, Dict]:
+        """One wave, the engine's greedy loop, timed as ``_WaveClock``."""
+        wave = {"requests": len(reqs), "prompt_len": plen, "decode_s": []}
+        gen_toks = [[] for _ in reqs]
+        synchronize(device)
+        torch.cuda.reset_peak_memory_stats()
+        t_wave = time.perf_counter()
+        K.flash_attention.launches = 0
+        logits, cache = model.prefill(params, batch, max_seq)
+        synchronize(device)
+        wave["prefill_s"] = time.perf_counter() - t_wave
+        wave["launches"] = K.flash_attention.launches
+        first = {"logits": logits.clone()}
+        tok = logits[:, -1].argmax(-1)
+        for step in range(SERVE_ENCDEC_NEW):
+            for i, t in enumerate(tok.tolist()):
+                gen_toks[i].append(int(t))
+            if step == SERVE_ENCDEC_NEW - 1:
+                break
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, cache,
+                                         {"tokens": tok[:, None]})
+            tok = logits[:, -1].argmax(-1)
+            synchronize(device)
+            wave["decode_s"].append(time.perf_counter() - t0)
+        wave["seconds"] = time.perf_counter() - t_wave
+        wave["decode_launches"] = K.flash_attention.launches \
+            - wave["launches"]
+        wave["tokens"] = sum(len(g) for g in gen_toks)
+        wave["tokens_per_s"] = wave["tokens"] / wave["seconds"]
+        wave["decode_ms_per_step"] = (1e3 * sum(wave["decode_s"])
+                                      / max(1, len(wave["decode_s"])))
+        wave["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return wave, {"logits": first["logits"], "tokens": gen_toks}
+
+    serve()                                       # untimed warm-up wave
+    with _AttentionRoute() as route:
+        wave, first = serve()
+    _log_waves(name, [wave])
+    _check_tokens({r.uid: first["tokens"][i] for i, r in enumerate(reqs)},
+                  reqs, cfg.padded_vocab, name)
+    causal, full = _expected_launches(cfg)
+    log(f"[serve] {name}: attention kernel launches a prefill "
+        f"{wave['launches']} ({causal + full} expected: {full} not causal, "
+        f"{causal} causal; by mask {route.masks[False]} not causal, "
+        f"{route.masks[True]} causal), in decode {wave['decode_launches']}; "
+        f"plain version called {route.plain_calls} times")
+    if (wave["launches"] != causal + full or wave["decode_launches"]
+            or route.masks != {True: causal, False: full}
+            or route.plain_calls):
+        raise AssertionError(f"{name}: {wave}, masks {route.masks}, "
+                             f"{route.plain_calls} plain calls")
+    row.update(waves=[wave], tokens=wave["tokens"], launches=wave["launches"],
+               launches_not_causal=route.masks[False],
+               plain_calls=route.plain_calls)
+    before = K.flash_attention.launches
+    row["layer0"], row["logits"], qkv = _plain_route_check(
+        lambda: model.prefill(params, batch, max_seq)[0], first, attn_tol,
+        SERVE_LOGIT_TOL)
+    _log_checks(name, row["layer0"], row["logits"])
+    row["attention"] = _serve_kernel_at(*qkv[:3], hw, flush, qkv[3])
+    row["profile"] = _profile(
+        name, lambda: model.prefill(params, batch, max_seq),
+        lambda cache, tok: model.decode(params, cache, {"tokens": tok}))
+    K.flash_attention.launches = before        # comparisons do not count
+    del params, frames, batch, qkv
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_zoo(hw, device) -> Dict:
+    """Phase 10's second half: the rest of the model zoo at full width and
+    depth (``SERVE_RECURRENT`` through the engine, ``SERVE_ENCDEC`` through
+    its prefill/decode loop).  Raises when a token is out of range, a
+    prefill's attention launches are not its arch's, a decode step
+    launches the kernel, the plain version runs on the main path, or a
+    check of ``_plain_route_check`` fails."""
+    import torch
+
+    from repro_torch.core.evaluate import L2_FLUSH_BYTES
+
+    t_phase = time.perf_counter()
+    attn_tol = next(p.tol for p in PORTS if p.name == "attention")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    rows = [_serve_engine_arch(name, hw, device, flush, attn_tol)
+            for name in SERVE_RECURRENT]
+    rows.append(_serve_encdec(hw, device, flush, attn_tol))
+    for r in rows:
+        at = r.get("attention")
+        if at is not None:
+            log(f"[serve] {r['arch']} attention at {at['shape']} "
+                f"({'causal' if at['causal'] else 'not causal'}): kernel "
+                f"{at['ms']:.4f} ms, plain {at['plain_ms']:.4f} ms, library "
+                f"{at['library_ms']:.4f} ms ({at['library_backend']}), bound "
+                f"{at['bound_ms']:.4f} ms ({at['bound_unit']})")
+    del flush
+    torch.cuda.empty_cache()
+    out = {"archs": rows, "launches_total": sum(r["launches"] for r in rows),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[time] serve zoo {out['phase_s']:.1f} s")
     return out
 
 
@@ -2092,6 +2492,7 @@ def main() -> int:
     # phase 10: serving on the card
     serve = phase_serve(hw, device)
     serve["service_serve_kind"] = service["serve_kind"]
+    serve["zoo"] = phase_serve_zoo(hw, device)
 
     # phase 11: report
     t0 = time.perf_counter()
@@ -2105,9 +2506,16 @@ def main() -> int:
         entry = {**head, **times, **rest}
         if port.name == "attention":
             # the serve phase's prefills launch it on their main path too
-            entry["launches"] += serve["launches_total"]
+            zoo = serve["zoo"]
+            entry["launches"] += serve["launches_total"] \
+                + zoo["launches_total"]
             entry["launches_serve"] = serve["launches_total"]
+            entry["launches_serve_zoo"] = {r["arch"]: r["launches"]
+                                           for r in zoo["archs"]}
             entry["at_serve"] = serve["attention_at_serve"]
+            entry["at_serve_zoo"] = {r["arch"]: r["attention"]
+                                     for r in zoo["archs"]
+                                     if r.get("attention")}
         for tag in port.sweeps[1:]:
             entry["at_" + bench.inputs[tag].tag] = kernel_times(
                 port, bench, bench.inputs[tag], port_records[tag], hw,
@@ -2132,10 +2540,13 @@ def main() -> int:
             + _extra_report(times, floor.get(times["shape"])))
         for tag in port.sweeps[1:]:
             at = entry["at_" + bench.inputs[tag].tag]
+            lib = at["library_ms"]
             log(f"[report] {port.name} {at['shape']}: best "
                 f"{at['kernel_ms_best']:.4f} ms, default "
                 f"{at['kernel_ms_default']:.4f} ms, plain "
-                f"{at['plain_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms"
+                f"{at['plain_ms']:.4f} ms, library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{at['bound_ms']:.4f} ms"
                 + _extra_report(at, floor.get(at["shape"])))
     report = {"kernels": entries,
               "not_ported": [{"name": n, "replaces": r}

@@ -1,9 +1,7 @@
 """Assigned-architecture configs: one module per arch, plus the catalog.
 
-The JAX package's ``repro.configs``, data only, carried over unchanged.
-The port's model zoo builds the transformer families (dense, moe, vlm);
-the ssm, hybrid and audio entries are listed here but refused by
-``repro_torch.models.registry.build_model`` until they are ported.
+The JAX package's ``repro.configs``, data only, carried over unchanged;
+``repro_torch.models.registry.build_model`` builds every entry.
 """
 from repro_torch.configs import (command_r_plus_104b, deepseek_v2_236b,
                                  gemma_2b, internvl2_76b, llama4_scout_17b,

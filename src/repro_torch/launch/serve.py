@@ -6,7 +6,11 @@ card (the JAX package's ``repro.launch.serve``, carried over).
 
 runs on the first CUDA card; ``--device cpu`` runs on the CPU, with the
 attention kernel's plain version (``--smoke`` picks the arch's small test
-config).  Weights are random, drawn from seed 0 on the device.
+config).  Weights are random, drawn from seed 0 on the device.  Every
+decoder-only arch serves (``--arch zamba2-2.7b``, ``--arch xlstm-125m``
+too; their prompts here are at most 16 tokens, within one chunk of their
+scans); the encoder-decoder ``seamless-m4t-large-v2`` is refused with a
+message, as the engine feeds tokens only.
 
 ``--autotune`` serves through the online shape-bucketed tuner instead of a
 fixed configuration: requests are bucketed by (prompt length, max-new)
@@ -63,12 +67,15 @@ def main(argv=None) -> int:
     from repro_torch.serve.engine import (Request, ServeEngine,
                                           tune_engine_batch)
 
-    device = resolve_device(args.device)
     arch = (SMOKES if args.smoke else ARCHS)[args.arch]
-    try:
-        model = build_model(arch)
-    except NotImplementedError as exc:
-        raise SystemExit(f"--arch {args.arch}: {exc}")
+    if arch.enc_layers:
+        raise SystemExit(
+            f"--arch {args.arch}: the engine serves token-only models, as "
+            f"the JAX engine does; this encoder-decoder also needs its "
+            f"encoder's frames: serve it through Model.prefill and "
+            f"Model.decode")
+    device = resolve_device(args.device)
+    model = build_model(arch)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(1, arch.vocab_size,

@@ -1,4 +1,5 @@
-"""The model zoo's transformer families in PyTorch: dense GQA, MoE, MLA
-and the vision-stub VLM (``registry.build_model``); the ssm, xlstm,
-hybrid and encoder-decoder families wait for a later slice of the port
-(ROADMAP.md, queue 1, item 7)."""
+"""The model zoo in PyTorch, all ten archs of ``repro_torch.configs``
+(``registry.build_model``): the transformer families (dense GQA, MoE, MLA,
+the vision-stub VLM), Zamba2 (Mamba2 + a shared attention block) and
+xLSTM (``hybrid``, over ``ssm`` and ``xlstm``), and the SeamlessM4T
+encoder-decoder (``encdec``)."""

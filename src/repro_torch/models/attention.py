@@ -2,21 +2,24 @@
 MLA (multi-head latent attention with a compressed KV cache), in PyTorch.
 
 The JAX package's ``repro.models.attention`` carried over.  There, prefill
-and training compute causal attention in plain JAX and name the Pallas
-kernel as the TPU drop-in; here GQA prefill goes through the port's
-hand-written kernel (``repro_torch.kernels.attention.kernel.
-flash_attention``, ``csrc/attention.cu``): q as (B, H, S, D), K and V
-repeated from the kv heads to H heads (query head j reads kv head
-j // (H / Hkv), the JAX package's ``(b, s, hkv, rep, d)`` order), all cast
-to fp32, scale 1/sqrt(D), the kernel's default parameters, and the output
-cast back to the model's dtype.  The wrapper takes its plain version only
-for CPU tensors; on the card a kernel that fails to build or launch
-raises.
+and training compute attention in plain JAX and name the Pallas kernel as
+the TPU drop-in; here GQA prefill goes through the port's hand-written
+kernel (``repro_torch.kernels.attention.kernel.flash_attention``,
+``csrc/attention.cu``), causal or not as the config says (an encoder's
+self-attention is not; RoPE is applied there too, as in JAX): q as
+(B, H, S, D), K and V repeated from the kv heads to H heads (query head j
+reads kv head j // (H / Hkv), the JAX package's ``(b, s, hkv, rep, d)``
+order), all cast to fp32, scale 1/sqrt(D), the kernel's default
+parameters, and the output cast back to the model's dtype.  The wrapper
+takes its plain version only for CPU tensors; on the card a kernel that
+fails to build or launch raises.
 
-MLA prefill (V's head dim differs from the qk dim) and both decode paths
-stay plain PyTorch, as the JAX package computes them: decode is the dense
-matvec over the cache, operands cast to fp32 where JAX accumulates in
-fp32 (``preferred_element_type``).
+MLA prefill (V's head dim differs from the qk dim), cross-attention (its
+query length differs from its key length, and the kernel takes one S for
+q, k and v: ``chunked_attention``, JAX's ``_chunked_attention`` with
+``causal=False``) and both decode paths stay plain PyTorch, as the JAX
+package computes them: decode is the dense matvec over the cache, operands
+cast to fp32 where JAX accumulates in fp32 (``preferred_element_type``).
 
 Cache layout (GQA):   {"k": (B, S_max, Hkv, D), "v": ..., "pos": int32}
 Cache layout (MLA):   {"c_kv": (B, S_max, R), "k_rope": (B, S_max, Dr)}
@@ -35,6 +38,9 @@ NEG_INF = -1e30
 # plain attention (MLA prefill): query rows a chunk, bounding the
 # (B, H, rows, S) scores
 PLAIN_Q_CHUNK = 1024
+# plain non-causal attention (cross-attention): keys a chunk, the JAX
+# package's kv_chunk
+KV_CHUNK = 1024
 
 
 class AttnConfig(NamedTuple):
@@ -69,17 +75,50 @@ def gqa_defs(cfg: AttnConfig) -> Dict[str, ParamDef]:
     return defs
 
 
-def kernel_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of q (B, S, H, D) over k, v (B, S, Hkv, D) through
-    the hand-written kernel; (B, S, H, D) in q's dtype."""
+def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D) through the
+    hand-written kernel, causal or not; (B, S, H, D) in q's dtype."""
     h, hkv = q.shape[2], k.shape[2]
     rep = h // hkv
     qh = q.transpose(1, 2).float().contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(rep, dim=1).float()
               .contiguous() for t in (k, v))
-    out = flash_attention(qh, kh, vh, causal=True)
+    out = flash_attention(qh, kh, vh, causal=causal)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Non-causal attention of q (B, S, H, D) over k (B, T, Hkv, D) and
+    v (B, T, Hkv, Dv), T free, in plain PyTorch: the JAX package's
+    ``_chunked_attention(causal=False)``, an online softmax over chunks of
+    the keys, with its rounding (q scaled in its dtype, scores and
+    statistics in fp32, p cast to V's dtype before the PV product).
+    Returns fp32 (B, S, H, Dv)."""
+    b, s, h, d = q.shape
+    t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = h // hkv
+    qf = (q * (1.0 / math.sqrt(d))).reshape(b, s, hkv, rep, d).float()
+    m = torch.full((b, hkv, rep, s), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, rep, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, rep, s, dv), dtype=torch.float32,
+                      device=q.device)
+    # the last chunk is short where JAX pads it and masks the pads to
+    # -1e30: their p is exactly 0 either way
+    for c0 in range(0, t, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        sij = torch.einsum("bshrd,bthd->bhrst", qf, kb.float())
+        m_new = torch.maximum(m, sij.amax(dim=-1))
+        p = torch.exp(sij - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhrst,bthv->bhrsv", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv)
 
 
 def plain_causal_attention(q: torch.Tensor, k: torch.Tensor,
@@ -127,14 +166,11 @@ def gqa_apply(
     v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hk, hd)
 
     if cache is None:
-        if not cfg.causal:
-            raise ValueError("the port's GQA prefill is causal only, as the "
-                             "model zoo's")
         pos = positions if positions is not None \
             else torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = kernel_causal_attention(q, k, v)
+        out = kernel_attention(q, k, v, causal=cfg.causal)
         new_cache = {"k": k, "v": v}
     else:
         # single-token decode over the stored prefix plus the current token

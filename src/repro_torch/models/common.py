@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -172,6 +172,25 @@ def mlp_apply(p: Params, x: torch.Tensor,
 
 
 # =============================================================================
+# Caches stacked along the layers
+# =============================================================================
+def broadcast_cache(tree: Dict, lead: Tuple[int, ...]) -> Dict:
+    """Every leaf of a one-layer cache repeated along leading ``lead``
+    axes (``pos`` too), each a tensor of its own."""
+    return {k: broadcast_cache(v, lead) if isinstance(v, dict)
+            else v.expand(lead + tuple(v.shape)).clone()
+            for k, v in tree.items()}
+
+
+def stack_caches(caches: List[Dict]) -> Dict:
+    """One-layer caches stacked along a new leading axis, key by key."""
+    return {k: stack_caches([c[k] for c in caches])
+            if isinstance(caches[0][k], dict)
+            else torch.stack([c[k] for c in caches])
+            for k in caches[0]}
+
+
+# =============================================================================
 # Loss: cross-entropy, optionally chunked along the sequence
 # =============================================================================
 def _chunk_ce(hidden: torch.Tensor, w_out: torch.Tensor,
@@ -208,9 +227,10 @@ class ParamTree(torch.nn.Module):
     """A ParamDef tree as a module: a leaf is a parameter (no gradient:
     the port serves, training is a later slice), a subtree a child
     module, and a stacked subtree (``layers`` leading axis) a
-    ``ModuleList`` of one tree a layer.  ``p["wq"]``, ``p.get("bq")`` and
-    ``"w_gate" in p`` read it as the JAX package's functions read their
-    nested dicts.
+    ``ModuleList`` of one tree a layer; a subtree stacked twice (Zamba2's
+    superblocks of layers) a ``ModuleList`` of ``ModuleList``s.
+    ``p["wq"]``, ``p.get("bq")`` and ``"w_gate" in p`` read it as the JAX
+    package's functions read their nested dicts.
 
     ``leaf(path, ParamDef)`` makes each tensor, stacked leaves whole;
     ``stacked`` names the subtrees split into layers."""
@@ -243,12 +263,24 @@ class ParamTree(torch.nn.Module):
 
 def _split_layers(defs, leaf: Callable, path: Tuple[str, ...]
                   ) -> torch.nn.ModuleList:
-    """A stacked subtree as one ParamTree a layer, each stacked leaf made
-    whole (one draw, as the JAX package draws it) and sliced."""
-    whole = {p: leaf(path + p, d) for p, d in param_leaves(defs)}
+    """A stacked subtree as one ParamTree a layer (a ModuleList of them
+    for each further ``layers`` axis), each stacked leaf made whole (one
+    draw, as the JAX package draws it) and sliced."""
+    leaves = param_leaves(defs)
+    whole = {p: leaf(path + p, d) for p, d in leaves}
+    spec, depth = leaves[0][1].spec, 0
+    while depth < len(spec) and spec[depth] == "layers":
+        depth += 1
+    return _layers_of(defs, whole, depth)
+
+
+def _layers_of(defs, whole: Dict, depth: int) -> torch.nn.ModuleList:
     n = next(iter(whole.values())).shape[0]
-    layer_defs = _tree_map_defs(
+    inner = _tree_map_defs(
         lambda d: ParamDef(d.shape[1:], d.spec[1:], d.init, d.scale), defs)
+    if depth > 1:
+        return torch.nn.ModuleList(
+            _layers_of(inner, {p: t[i] for p, t in whole.items()}, depth - 1)
+            for i in range(n))
     return torch.nn.ModuleList(
-        ParamTree(layer_defs, lambda p, d, i=i: whole[p][i])
-        for i in range(n))
+        ParamTree(inner, lambda p, d, i=i: whole[p][i]) for i in range(n))

@@ -1,0 +1,183 @@
+"""Encoder-decoder transformer (the SeamlessM4T backbone, audio frontend
+stub), in PyTorch.
+
+The JAX package's ``repro.models.encdec`` carried over.  The speech
+frontend is a stub: the batch carries precomputed frame embeddings
+``frames`` (B, T_enc, frontend_dim), cast to the model's dtype and
+projected; the encoder is a bidirectional transformer over them, the
+decoder a causal transformer with cross-attention to the encoder's output.
+
+Both self-attentions' prefill run on the hand-written attention kernel:
+the encoder's with ``causal=False`` at (B, H, T_enc, D), the decoder's
+causal at the prompt's length; one launch a layer each.  Cross-attention
+stays plain (``attention.chunked_attention``): its queries (the prompt)
+and keys (the frames) differ in length, and the kernel takes one S for q,
+k and v.  The JAX package scans its layers over stacked parameters; the
+port holds ``enc`` and ``dec`` as ``ModuleList``s and loops.
+
+Cache: {"self": the decoder's KV cache, stacked (dec_layers,) as a
+transformer's; "cross": each decoder layer's K/V of the encoder output,
+(dec_layers, B, T_enc, Hkv, D)}.  Decode writes the new token's K/V into
+the cache passed in, in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models.attention import (chunked_attention, gqa_apply,
+                                          gqa_defs, gqa_init_cache)
+from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
+                                       cross_entropy_from_hidden, dense,
+                                       mlp_apply, mlp_defs, rms_norm,
+                                       stack_caches, stack_defs)
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import attn_config, update_stacked_cache
+
+
+def _xattn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    d, h, hk = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.eff_head_dim
+    return {
+        "wq": ParamDef((d, h * hd), ("embed", "heads")),
+        "wk": ParamDef((d, hk * hd), ("embed", "kv")),
+        "wv": ParamDef((d, hk * hd), ("embed", "kv")),
+        "wo": ParamDef((h * hd, d), ("heads", "embed")),
+    }
+
+
+def encdec_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    enc_block = {
+        "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "attn": gqa_defs(attn_config(cfg)),
+        "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "mlp": mlp_defs(cfg.d_model, cfg.d_ff, gated=True),
+    }
+    dec_block = {
+        "ln1": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "attn": gqa_defs(attn_config(cfg)),
+        "ln_x": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "xattn": _xattn_defs(cfg),
+        "ln2": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "mlp": mlp_defs(cfg.d_model, cfg.d_ff, gated=True),
+    }
+    v = cfg.padded_vocab
+    return {
+        "frontend_proj": ParamDef((cfg.frontend_dim, cfg.d_model),
+                                  (None, "embed")),
+        "embed": ParamDef((v, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "enc": stack_defs(enc_block, cfg.enc_layers),
+        "enc_ln": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "dec": stack_defs(dec_block, cfg.dec_layers),
+        "final_ln": ParamDef((cfg.d_model,), ("embed",), init="ones"),
+        "lm_head": ParamDef((cfg.d_model, v), ("embed", "vocab"), scale=0.02),
+    }
+
+
+def encode(cfg: ArchConfig, params: Params,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Frames (B, T, frontend_dim) -> the encoder's normed output
+    (B, T, D), its self-attention on the kernel, not causal."""
+    acfg = attn_config(cfg)._replace(causal=False)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    x = dense(frames.to(dt), params["frontend_proj"])
+    for lp in params["enc"]:
+        h, _ = gqa_apply(lp["attn"], acfg, rms_norm(x, lp["ln1"]))
+        x = x + h
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.activation)
+    return rms_norm(x, params["enc_ln"])
+
+
+def _cross_attend(cfg: ArchConfig, xp: Params, x: torch.Tensor,
+                  enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.eff_head_dim
+    q = dense(x, xp["wq"]).reshape(b, s, h, hd)
+    k, v = enc_kv
+    out = chunked_attention(q, k, v)
+    return dense(out.reshape(b, s, h * hd).to(x.dtype), xp["wo"])
+
+
+def _enc_kv(cfg: ArchConfig, xp: Params, enc_out: torch.Tensor):
+    b, t, _ = enc_out.shape
+    hk, hd = cfg.n_kv_heads, cfg.eff_head_dim
+    k = dense(enc_out, xp["wk"]).reshape(b, t, hk, hd)
+    v = dense(enc_out, xp["wv"]).reshape(b, t, hk, hd)
+    return k, v
+
+
+def _dec_block(cfg: ArchConfig, lp: Params, x: torch.Tensor, enc_kv,
+               cache=None):
+    h, new_kv = gqa_apply(lp["attn"], attn_config(cfg),
+                          rms_norm(x, lp["ln1"]), cache=cache)
+    x = x + h
+    x = x + _cross_attend(cfg, lp["xattn"], rms_norm(x, lp["ln_x"]), enc_kv)
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.activation)
+    return x, new_kv
+
+
+@torch.no_grad()
+def encdec_loss(cfg: ArchConfig, params: Params, batch: Dict,
+                loss_chunks: int = 1) -> torch.Tensor:
+    """Forward only, as ``transformer.lm_loss``."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x = params["embed"][batch["tokens"].long()]
+    for lp in params["dec"]:
+        x, _ = _dec_block(cfg, lp, x, _enc_kv(cfg, lp["xattn"], enc_out))
+    hidden = rms_norm(x, params["final_ln"])
+    return cross_entropy_from_hidden(hidden, params["lm_head"],
+                                     batch["labels"], seq_chunks=loss_chunks)
+
+
+def encdec_init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
+                      device=None) -> Dict:
+    a1 = gqa_init_cache(attn_config(cfg), batch, max_seq, dtype, device)
+    hk, hd = cfg.n_kv_heads, cfg.eff_head_dim
+    shape = (cfg.dec_layers, batch, cfg.frontend_len, hk, hd)
+    cross = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"self": broadcast_cache(a1, (cfg.dec_layers,)), "cross": cross}
+
+
+@torch.no_grad()
+def encdec_prefill(cfg: ArchConfig, params: Params, batch: Dict,
+                   max_seq: int) -> Tuple[torch.Tensor, Dict]:
+    """Encode ``frames``, then the decoder over ``tokens``, keeping each
+    layer's self K/V and cross K/V; the last position's logits (B, 1, V)."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x = params["embed"][batch["tokens"].long()]
+    b, s, _ = x.shape
+    if s > max_seq:
+        raise ValueError(f"a prompt of {s} positions does not fit a cache "
+                         f"of max_seq={max_seq}")
+    self_c = broadcast_cache(gqa_init_cache(attn_config(cfg), b, max_seq,
+                                            x.dtype, x.device),
+                             (cfg.dec_layers,))
+    cross = []
+    for i, lp in enumerate(params["dec"]):
+        kv = _enc_kv(cfg, lp["xattn"], enc_out)
+        cross.append({"k": kv[0], "v": kv[1]})
+        x, new_kv = _dec_block(cfg, lp, x, kv)
+        for name, t in new_kv.items():
+            self_c[name][i, :, :s] = t
+    self_c["pos"].fill_(s)
+    x = rms_norm(x[:, -1:], params["final_ln"])
+    return dense(x, params["lm_head"]), {"self": self_c,
+                                         "cross": stack_caches(cross)}
+
+
+@torch.no_grad()
+def encdec_decode(cfg: ArchConfig, params: Params, cache: Dict,
+                  batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode; the self cache passed in is updated in place."""
+    sc, cc = cache["self"], cache["cross"]
+    x = params["embed"][batch["tokens"].long()]
+    news = []
+    for i, lp in enumerate(params["dec"]):
+        x, new_kv = _dec_block(cfg, lp, x, (cc["k"][i], cc["v"][i]),
+                               cache={k: v[i] for k, v in sc.items()})
+        news.append(new_kv)
+    new_self = update_stacked_cache(cfg, sc, stack_caches(news))
+    x = rms_norm(x, params["final_ln"])
+    return dense(x, params["lm_head"]), {"self": new_self, "cross": cc}

@@ -1,34 +1,50 @@
 """Model registry: ArchConfig -> Model (init / loss / prefill / decode /
 init_cache / parameter counts).
 
-The JAX package's ``repro.models.registry`` for the transformer families.
-``Model.init`` draws the parameters on a device (the card unless the
-caller names the CPU) from an explicit ``torch.Generator`` and returns
-them as a ``TransformerLM`` module; ``prefill``, ``decode`` and ``loss``
-take that module where the JAX functions take their nested dicts.  The
-dry-run specs (``abstract``, ``specs``, ``cache_specs``, ``input_specs``)
-wait for ROADMAP.md, queue 1, item 9.
+The JAX package's ``repro.models.registry``, for all four families of the
+model zoo: the transformer LMs (dense, MoE, MLA, the VLM stub), Zamba2 and
+xLSTM (``hybrid``), and the encoder-decoder (``encdec``), dispatched by the
+config's fields as the JAX registry dispatches them.  ``Model.init`` draws
+the parameters on a device (the card unless the caller names the CPU) from
+an explicit ``torch.Generator`` and returns them as a ``ParamTree``
+module; ``prefill``, ``decode`` and ``loss`` take that module where the
+JAX functions take their nested dicts.  The dry-run specs (``abstract``,
+``specs``, ``cache_specs``, ``input_specs``) wait for ROADMAP.md, queue 1,
+item 9.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.common import init_leaf
+from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.models.common import ParamTree, init_leaf
 from repro_torch.models.config import ArchConfig
 
-NOT_PORTED = ("the {what} family is not ported yet: the port has the "
-              "transformer families (dense, moe, vlm); ssm, xlstm, hybrid "
-              "and encoder-decoder models wait for ROADMAP.md, queue 1, "
-              "item 7")
+# the subtrees stacked along a layers axis, split into one module a layer
+STACKED = ("blocks", "supers", "pairs", "enc", "dec")
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _family(cfg: ArchConfig):
+    """The arch's family's (loss, prefill, decode, init_cache)."""
+    if cfg.xlstm:
+        return (hybrid.xlstm_loss, hybrid.xlstm_prefill, hybrid.xlstm_decode,
+                hybrid.xlstm_init_cache)
+    if cfg.mamba_per_attn:
+        return (hybrid.zamba2_loss, hybrid.zamba2_prefill,
+                hybrid.zamba2_decode, hybrid.zamba2_init_cache)
+    if cfg.enc_layers:
+        return (encdec.encdec_loss, encdec.encdec_prefill,
+                encdec.encdec_decode, encdec.encdec_init_cache)
+    return (transformer.lm_loss, transformer.prefill, transformer.decode_step,
+            transformer.init_cache)
 
 
 @dataclasses.dataclass
@@ -37,8 +53,13 @@ class Model:
     defs: Any
 
     # --- parameters -----------------------------------------------------------
+    def module(self, leaf: Callable) -> ParamTree:
+        """The parameters as a module, ``leaf(path, ParamDef)`` making each
+        tensor (a stacked leaf whole, with its layers axes)."""
+        return ParamTree(self.defs, leaf, stacked=STACKED)
+
     def init(self, generator: Optional[torch.Generator] = None,
-             device=None) -> transformer.TransformerLM:
+             device=None) -> ParamTree:
         """The parameters on ``device`` (default: the card), drawn from
         ``generator`` (default: seed 0 on that device) as the JAX package
         draws them: the same distributions, not the same bits."""
@@ -46,23 +67,22 @@ class Model:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         dt = model_dtype(self.cfg)
-        return transformer.TransformerLM(
-            self.cfg, lambda path, d: init_leaf(d, generator, dt, dev))
+        return self.module(lambda path, d: init_leaf(d, generator, dt, dev))
 
     # --- compute --------------------------------------------------------------
     def loss(self, params, batch, **opts) -> torch.Tensor:
-        return transformer.lm_loss(self.cfg, params, batch, **opts)
+        return _family(self.cfg)[0](self.cfg, params, batch, **opts)
 
     def prefill(self, params, batch, max_seq: int):
-        return transformer.prefill(self.cfg, params, batch, max_seq)
+        return _family(self.cfg)[1](self.cfg, params, batch, max_seq)
 
     def decode(self, params, cache, batch):
-        return transformer.decode_step(self.cfg, params, cache, batch)
+        return _family(self.cfg)[2](self.cfg, params, cache, batch)
 
     def init_cache(self, batch: int, max_seq: int, device=None):
-        return transformer.init_cache(self.cfg, batch, max_seq,
-                                      model_dtype(self.cfg),
-                                      resolve_device(device))
+        return _family(self.cfg)[3](self.cfg, batch, max_seq,
+                                    model_dtype(self.cfg),
+                                    resolve_device(device))
 
     # --- bookkeeping ------------------------------------------------------------
     def param_count(self) -> int:
@@ -96,10 +116,12 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    for what, has in (("xlstm", cfg.xlstm), ("zamba2 hybrid",
-                                             cfg.mamba_per_attn),
-                      ("encoder-decoder", cfg.enc_layers)):
-        if has:
-            raise NotImplementedError(
-                f"{cfg.name}: {NOT_PORTED.format(what=what)}")
-    return Model(cfg=cfg, defs=transformer.lm_defs(cfg))
+    if cfg.xlstm:
+        defs = hybrid.xlstm_defs(cfg)
+    elif cfg.mamba_per_attn:
+        defs = hybrid.zamba2_defs(cfg)
+    elif cfg.enc_layers:
+        defs = encdec.encdec_defs(cfg)
+    else:
+        defs = transformer.lm_defs(cfg)
+    return Model(cfg=cfg, defs=defs)

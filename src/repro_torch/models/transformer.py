@@ -3,12 +3,13 @@ optional vision embedding prefix (the VLM stub), in PyTorch.
 
 The JAX package's ``repro.models.transformer`` carried over.  The JAX
 package scans its layers over stacked parameters; the port holds one
-module a layer (``TransformerLM``, a ``ParamTree`` of ``lm_defs``, with
-``blocks`` a ``ModuleList``) and loops over them.  The KV cache keeps the
-JAX layout, stacked along the layers: ``decode_step`` reads each layer's
-slice and writes every layer's new token in place at ``pos`` afterwards
-(``update_stacked_cache``).  Prompts are not masked beyond the causal
-mask: a left-padded prompt attends to its pads, as in the JAX package.
+module a layer (a ``ParamTree`` of ``lm_defs``, with ``blocks`` a
+``ModuleList``: ``registry.Model.module``) and loops over them.  The KV
+cache keeps the JAX layout, stacked along the layers: ``decode_step``
+reads each layer's slice and writes every layer's new token in place at
+``pos`` afterwards (``update_stacked_cache``).  Prompts are not masked
+beyond the causal mask: a left-padded prompt attends to its pads, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.models.attention import (AttnConfig, gqa_apply, gqa_defs,
                                           gqa_init_cache, mla_apply,
                                           mla_defs, mla_init_cache)
-from repro_torch.models.common import (ParamDef, ParamTree, Params,
+from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
                                        mlp_apply, mlp_defs, rms_norm,
                                        stack_defs)
@@ -88,18 +89,6 @@ def lm_defs(cfg: ArchConfig) -> Dict[str, Any]:
         defs["vis_proj"] = ParamDef((cfg.frontend_dim, cfg.d_model),
                                     (None, "embed"))
     return defs
-
-
-class TransformerLM(ParamTree):
-    """The parameters of ``lm_defs(cfg)`` as modules: ``embed``,
-    ``blocks`` (one ``ParamTree`` a layer: ``ln1``, ``ln2``, ``attn``,
-    ``mlp`` or ``moe``), ``final_ln`` and, where the config has them,
-    ``lm_head`` and ``vis_proj``.  ``leaf(path, ParamDef)`` makes each
-    tensor, a stacked ``blocks`` leaf whole with its layers axis."""
-
-    def __init__(self, cfg: ArchConfig, leaf):
-        super().__init__(lm_defs(cfg), leaf, stacked=("blocks",))
-        self.cfg = cfg
 
 
 def _w_out(params: Params) -> torch.Tensor:
@@ -171,8 +160,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
     acfg = attn_config(cfg)
     one = (mla_init_cache if cfg.kv_lora_rank else gqa_init_cache)(
         acfg, batch, max_seq, dtype, device)
-    return {k: a.expand((cfg.n_layers,) + a.shape).clone()
-            for k, a in one.items()}
+    return broadcast_cache(one, (cfg.n_layers,))
 
 
 def update_stacked_cache(cfg: ArchConfig, cache: Dict,

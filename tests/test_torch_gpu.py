@@ -1,8 +1,8 @@
 """Tests that need a CUDA card: the port's kernels against their plain
 PyTorch versions on the card, the card evaluator, the fleet and the daemon
-on the card, and serving (the model zoo's SMOKE archs on the card against
-the port on the CPU, attention at the model's shapes, the engine, the
-online autotuner's timed waves and the serve CLI).
+on the card, and serving (the model zoo's SMOKE archs, all ten, on the
+card against the port on the CPU, attention at the models' shapes, the
+engine, the online autotuner's timed waves and the serve CLI).
 
 This file imports no JAX, so that it runs where the card is and JAX is not:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  Without a card every
@@ -716,8 +716,22 @@ def test_a_daemon_refuses_a_card_it_does_not_have(card_daemon):
 # serve CLI
 # =============================================================================
 SMOKE_ARCHS = ["qwen1.5-0.5b", "qwen2.5-3b", "gemma-2b", "command-r-plus-104b",
-               "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b"]
+               "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b",
+               "zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2"]
 MODEL_TOL = 1e-4     # fp32 SMOKE models, card against CPU: the sums' order
+
+
+def _prefill_launches(cfg) -> int:
+    """Attention kernel launches a prefill: one a GQA layer (MLA and the
+    recurrent layers have none), one a Zamba2 superblock (its shared
+    block), and the encoder's and decoder's self-attention a layer each."""
+    if cfg.kv_lora_rank or cfg.xlstm:
+        return 0
+    if cfg.mamba_per_attn:
+        return cfg.n_layers // cfg.mamba_per_attn
+    if cfg.enc_layers:
+        return cfg.enc_layers + cfg.dec_layers
+    return cfg.n_layers
 
 
 def _rel_t(out, ref) -> float:
@@ -744,6 +758,9 @@ def test_each_smoke_arch_on_the_card_matches_the_port_on_the_cpu(
     if cfg.frontend == "vision":
         batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
     ref, ref_cache = model.prefill(cpu_params, batch, 40)
     card_params = model.init(torch.Generator().manual_seed(2), device="cpu")
     card_params.to(cuda)
@@ -752,8 +769,7 @@ def test_each_smoke_arch_on_the_card_matches_the_port_on_the_cpu(
     before = A.flash_attention.launches
     out, cache = model.prefill(card_params, {k: v.to(cuda)
                                              for k, v in batch.items()}, 40)
-    assert A.flash_attention.launches - before == (
-        0 if cfg.kv_lora_rank else cfg.n_layers)
+    assert A.flash_attention.launches - before == _prefill_launches(cfg)
     assert _rel_t(out, ref) < MODEL_TOL
     tok = ref[:, -1].argmax(-1)
     for _ in range(4):
@@ -775,7 +791,7 @@ def test_attention_kernel_at_model_shapes_matches_its_plain_version(
     heads repeated to H = 4, cast to fp32, through the kernel against its
     plain version (2e-3); the model's function gives the kernel's output
     cast back to bf16, with one launch."""
-    from repro_torch.models.attention import kernel_causal_attention
+    from repro_torch.models.attention import kernel_attention
 
     rng = np.random.default_rng(s * d + hkv)
 
@@ -791,9 +807,37 @@ def test_attention_kernel_at_model_shapes_matches_its_plain_version(
     ref = A.flash_attention_plain(qh, kh, vh)
     assert _rel_t(got, ref) < 2e-3
     before = A.flash_attention.launches
-    model_out = kernel_causal_attention(q, k, v)
+    model_out = kernel_attention(q, k, v)
     assert A.flash_attention.launches == before + 1
     assert model_out.dtype == torch.bfloat16
+    assert torch.equal(model_out, got.transpose(1, 2).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 32, 1024, 80), True),     # zamba2-2.7b's shared block
+    ((4, 16, 4096, 64), False),    # seamless-m4t-large-v2's encoder
+    ((4, 16, 64, 64), True),       # its decoder
+], ids=["zamba2_shared", "seamless_encoder", "seamless_decoder"])
+def test_attention_kernel_at_the_new_families_shapes(cuda, shape, causal):
+    """The kernel against its plain version (2e-3) at the shapes the new
+    families' prefills give it, bf16 activations cast to fp32; the model's
+    function launches it once, causal or not."""
+    from repro_torch.models.attention import kernel_attention
+
+    b, h, s, d = shape
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    qh, kh, vh = (t.transpose(1, 2).float().contiguous() for t in (q, k, v))
+    got = A.flash_attention(qh, kh, vh, causal=causal)
+    ref = A.flash_attention_plain(qh, kh, vh, causal=causal)
+    assert _rel_t(got, ref) < 2e-3
+    other = A.flash_attention_plain(qh, kh, vh, causal=not causal)
+    assert _rel_t(other, ref) > 1e-2
+    before = A.flash_attention.launches
+    model_out = kernel_attention(q, k, v, causal=causal)
+    assert A.flash_attention.launches == before + 1
     assert torch.equal(model_out, got.transpose(1, 2).to(torch.bfloat16))
 
 

@@ -59,8 +59,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.distributed.tuning",
                 "repro_torch.serve.engine", "repro_torch.serve.autotune"} | {
         f"repro_torch.models.{m}"
-        for m in ("attention", "common", "config", "convert", "moe",
-                  "registry", "transformer")} | {
+        for m in ("attention", "common", "config", "convert", "encdec",
+                  "hybrid", "moe", "registry", "ssm", "transformer",
+                  "xlstm")} | {
         f"repro_torch.service.{m}"
         for m in ("client", "daemon", "health", "journal", "protocol",
                   "shards", "tenants")} | {"repro_torch.service"} | {
@@ -168,6 +169,34 @@ def test_the_serve_cli_runs_with_jax_and_repro_blocked():
     assert served.returncode == 0, served.stderr
     assert "qwen2.5-smoke on cpu: 3 requests" in served.stdout
     assert "blocked import" not in served.stderr
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_the_serve_cli_serves_the_recurrent_archs_with_jax_blocked(arch):
+    """A SMOKE Zamba2 and xLSTM served on the CPU by the CLI, with jax
+    and the JAX package blocked."""
+    served = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.serve", "--arch", arch, "--smoke", "--device",
+         "cpu", "--requests", "3"],
+        capture_output=True, text=True, timeout=300)
+    assert served.returncode == 0, served.stderr
+    name = arch.split("-")[0]
+    assert f"{name}-smoke on cpu: 3 requests" in served.stdout
+    assert "blocked import" not in served.stderr
+
+
+def test_the_serve_cli_refuses_the_encoder_decoder_with_a_message():
+    """The engine feeds tokens only: seamless-m4t-large-v2, whose encoder
+    needs frames, is refused before any weight is drawn, not in a
+    KeyError."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.serve", "--arch", "seamless-m4t-large-v2"],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 1
+    assert "the engine serves token-only models" in out.stderr
+    assert "Traceback" not in out.stderr and "KeyError" not in out.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -5,7 +5,7 @@ plain version runs on CPU tensors) against ``_causal_block_attention`` and
 Hkv = 1, 2 and H; the whole GQA layer in prefill and decode; MLA prefill
 and decode; both MoE dispatches; ``apply_rope``, ``rms_norm``, the cache
 write at a clamped ``pos``; and the bookkeeping beside them (the configs,
-parameter counts, the parameter draw, the refusal of unported families).
+parameter counts of all ten archs, the parameter draw).
 
 Tolerance, fp32: max |port - JAX| <= 1e-4 x max |JAX| (the order of the
 sums differs, about 1e-6 here); the configs, counts and cache writes are
@@ -83,7 +83,7 @@ def test_gqa_prefill_attention_matches_both_jax_paths(s, chunk, hkv,
     monkeypatch.setattr(K, "flash_attention_plain",
                         lambda *a, **kw: calls.append(1) or plain(*a, **kw))
     q, k, v = _qkv(2, s, 4, hkv, 16)
-    got = PA.kernel_causal_attention(_t(q), _t(k), _t(v))
+    got = PA.kernel_attention(_t(q), _t(k), _t(v))
     block = JA._causal_block_attention(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), chunk=chunk)
     chunked = JA._chunked_attention(jnp.asarray(q), jnp.asarray(k),
@@ -101,7 +101,7 @@ def test_gqa_head_order_differs_from_tiling():
     q, k, v = _qkv(1, 20, 4, 2, 8, seed=3)
     ref = np.asarray(JA._chunked_attention(jnp.asarray(q), jnp.asarray(k),
                                            jnp.asarray(v), True, chunk=8))
-    got = PA.kernel_causal_attention(_t(q), _t(k), _t(v))
+    got = PA.kernel_attention(_t(q), _t(k), _t(v))
     tiled = K.flash_attention_plain(
         _t(q).transpose(1, 2).contiguous(),
         _t(k).transpose(1, 2).repeat(1, 2, 1, 1).contiguous(),
@@ -277,21 +277,10 @@ def test_param_counts_match_jax(name):
     assert pdt.arch_param_count(cfg) == jdt.arch_param_count(JARCHS[name])
     assert pdt.arch_active_param_count(cfg) \
         == jdt.arch_active_param_count(JARCHS[name])
-    try:
-        pm = pbuild(cfg)
-    except NotImplementedError:
-        return
+    pm = pbuild(cfg)
     jm = jbuild(JARCHS[name])
     assert pm.param_count() == jm.param_count()
     assert pm.active_param_count() == jm.active_param_count()
-
-
-@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_are_refused_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, "
-                                                  "item 7"):
-        pbuild(PARCHS[name])
 
 
 def test_init_draws_the_jax_distributions_from_its_generator():

@@ -1,14 +1,16 @@
 """The port's model zoo (``repro_torch.models``) against the JAX package's
 (``repro.models``), arch by arch, on the CPU.
 
-For each SMOKE config of the transformer families (qwen1.5, qwen2.5,
-gemma, command-r, llama4-scout, deepseek-v2, internvl2 with its patch
-embeddings) the JAX params are drawn once and carried into the port with
+For each SMOKE config of the model zoo (the transformer families:
+qwen1.5, qwen2.5, gemma, command-r, llama4-scout, deepseek-v2, internvl2
+with its patch embeddings; Zamba2, xLSTM, and SeamlessM4T with its frames)
+the JAX params are drawn once and carried into the port with
 ``params_from_jax``; the same inputs, made from a numpy seed, go through
-both: ``prefill`` (last-position logits and the whole cache), 4
-teacher-forced ``decode`` steps (each step's logits and the cache after
-them; both sides are fed JAX's greedy tokens) and ``loss``.  The port's
-GQA prefill runs its attention kernel's plain version here (CPU tensors).
+both: ``prefill`` (last-position logits and the whole cache, nested caches
+leaf by leaf), 4 teacher-forced ``decode`` steps (each step's logits and
+the cache after them; both sides are fed JAX's greedy tokens) and
+``loss``.  The port's GQA prefill runs its attention kernel's plain version
+here (CPU tensors).
 
 Tolerance, fp32: max |port - JAX| <= 1e-4 x max |JAX| for logits and
 caches, and 1e-4 relative for the loss.  Both sides compute in fp32; what
@@ -41,7 +43,8 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import build_model as pbuild
 
 ARCHS = ["qwen1.5-0.5b", "qwen2.5-3b", "gemma-2b", "command-r-plus-104b",
-         "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b"]
+         "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b",
+         "zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2"]
 RTOL = 1e-4
 BF16_RTOL = 5e-2
 BATCH, PROMPT, MAX_SEQ, STEPS = 2, 11, 24, 4
@@ -59,12 +62,26 @@ def _np(x):
         if jnp.asarray(x).dtype == jnp.bfloat16 else np.asarray(x)
 
 
+def _flat(cache, prefix=""):
+    """A nested cache as {"a/b": leaf}."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def _inputs(cfg, seed=0):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(1, cfg.vocab_size, size=(BATCH, PROMPT))
              .astype(np.int32)}
     if cfg.frontend == "vision":
         batch["patch_embeds"] = rng.standard_normal(
+            (BATCH, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal(
             (BATCH, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
     labels = rng.integers(0, cfg.vocab_size,
                           size=(BATCH, PROMPT)).astype(np.int32)
@@ -86,10 +103,9 @@ def _run(arch: str, dtype: str = "float32"):
                         max_seq=MAX_SEQ)
     pl, pc = pm.prefill(pp, {k: torch.from_numpy(v)
                              for k, v in batch.items()}, MAX_SEQ)
-    out = {"prefill": (_np(jl), pl), "cache": ({k: _np(v)
-                                                for k, v in jc.items()},
-                                               {k: v.clone()
-                                                for k, v in pc.items()}),
+    out = {"prefill": (_np(jl), pl),
+           "cache": ({k: _np(v) for k, v in _flat(jc).items()},
+                     {k: v.clone() for k, v in _flat(pc).items()}),
            "decode": [], "cfg": pcfg}
     if dtype == "bfloat16":
         return out
@@ -99,7 +115,8 @@ def _run(arch: str, dtype: str = "float32"):
         pl, pc = pm.decode(pp, pc, {"tokens": torch.from_numpy(tok[:, None])})
         out["decode"].append((_np(jl), pl))
         tok = _np(jl)[:, -1].argmax(-1).astype(np.int32)
-    out["cache_after"] = ({k: _np(v) for k, v in jc.items()}, pc)
+    out["cache_after"] = ({k: _np(v) for k, v in _flat(jc).items()},
+                          _flat(pc))
     lb = dict(batch, labels=labels)
     out["loss"] = (float(jm.loss(jp, {k: jnp.asarray(v)
                                       for k, v in lb.items()})),
@@ -118,8 +135,8 @@ def test_prefill_logits_and_cache_match_jax(arch):
     assert set(pc) == set(jc)
     for k in jc:
         assert tuple(pc[k].shape) == jc[k].shape, k
-        if k == "pos":
-            assert pc[k].tolist() == jc[k].tolist()
+        if k.endswith("pos"):
+            assert pc[k].tolist() == jc[k].tolist(), k
         else:
             assert _rel(pc[k], jc[k]) <= RTOL, k
 
@@ -132,12 +149,16 @@ def test_teacher_forced_decode_matches_jax(arch):
         assert tuple(pl.shape) == jl.shape, step
         assert _rel(pl, jl) <= RTOL, step
     jc, pc = r["cache_after"]
+    cfg = r["cfg"]
+    assert set(pc) == set(jc)
     for k in jc:
-        if k == "pos":
-            assert pc[k].tolist() == jc[k].tolist() \
-                == [PROMPT + STEPS + (r["cfg"].frontend_len
-                                      if r["cfg"].frontend else 0)] \
-                * r["cfg"].n_layers
+        if k.endswith("pos"):
+            # every layer's position: prompt (and the vision prefix) plus
+            # the steps; an encoder's frames take no position
+            pos = PROMPT + STEPS + (cfg.frontend_len
+                                    if cfg.frontend == "vision" else 0)
+            assert pc[k].tolist() == jc[k].tolist(), k
+            assert set(np.asarray(jc[k]).ravel().tolist()) == {pos}, k
         else:
             assert _rel(pc[k], jc[k]) <= RTOL, k
 

@@ -85,6 +85,25 @@ Then, kernel by kernel (the table ``PORTS``):
              called), layer 0's attention inputs and the first wave's
              logits through the plain version, the kernel timed at those
              inputs, a prefill and 8 decode steps profiled an arch.
+12. train  — training on the card (``phase_train``), run after phase 10
+             and reported in phase 11: (a) qwen1.5-0.5b at full width and
+             depth (bf16, random weights from seed 0) trains 10 steps of
+             8 x 1024 tokens through ``python -m
+             repro_torch.launch.supervisor``, twice at once: one run's
+             trainer is SIGKILLed once step 5's checkpoint is published and
+             resumes there through the supervisor, and its losses at steps
+             5 and 9 must match the other run's; the loss must fall. (b)
+             One step of the same model in this process: step seconds,
+             tokens/s, peak memory, the card's busy share, the attention
+             kernel's launches a step (forward and the remat recompute
+             under "nothing_saveable") and its plain version's calls (0),
+             the plain backward's share. (c) ``KernelAttention``'s output
+             and q/k/v gradients against autograd through the plain model
+             attention at the training shape and at every compiled head
+             dim, causal and not; the kernel refusing a gradient-carrying
+             input; the kernel's forward beside its bound and SDPA, and the
+             backward timed. (d) One train step of every SMOKE arch on the
+             card: a finite loss, every parameter with a finite gradient.
 11. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
@@ -205,6 +224,35 @@ SERVE_FP32_LOGIT_TOL = 1e-3
 # the head dims the check phase holds attention at beside the registry's:
 # every compiled one, and padded ones between them (1 to 256)
 ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
+# phase 12, training: qwen1.5-0.5b at full width and depth (bf16, random
+# weights from seed 0) trains TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+# tokens through the supervisor CLI, checkpointing every TRAIN_CKPT_EVERY;
+# one run's trainer is SIGKILLed once TRAIN_KILL_AT is published and resumes
+# there, beside a run that is not killed
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_STEPS = 10
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_CKPT_EVERY = 5
+TRAIN_KILL_AT = 5
+# the resumed run's losses against the uninterrupted run's, at the steps
+# both print after the kill: the restored state is the saved one bit for
+# bit, but nothing promises a bitwise repeatable bf16 step on the card (the
+# embedding gradient sums a token's rows in an order the library chooses;
+# on an H100 the printed losses came out equal); ulp-level weight
+# differences move a loss near 8-12 by about 1e-4, the lines print 4
+# decimals, and a wrong restore (a step replayed or skipped) moves the loss
+# by 1e-1 or more here (0.44 from step 5 to step 9), so 1e-2
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_LOSS_STEPS = (5, 9)
+# KernelAttention against autograd through the plain model attention:
+# forward and q/k/v gradients, relative to the largest magnitude; the
+# training shape, and a small one at every compiled head dim
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_ATTN_SMALL = (1, 2, 256)                   # (B, H, S), then each D
+TRAIN_TIMED_STEPS = 3
+# one train step of every SMOKE arch on the card
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2381,6 +2429,391 @@ def phase_serve_zoo(hw, device) -> Dict:
     return out
 
 
+def _train_losses(lines) -> Dict[int, float]:
+    """``{step: loss}`` of the ``[train] step`` lines."""
+    out = {}
+    for line in lines:
+        if line.startswith("[train] step "):
+            parts = line.split()
+            out[int(parts[2])] = float(parts[4])
+    return out
+
+
+def _children(pid: int):
+    """The pids whose parent is ``pid``."""
+    import os
+
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(name))
+    return out
+
+
+def _train_runs(workdir: Path) -> Dict:
+    """Phase 12 (a): the supervisor CLI twice at once, the same command
+    but for its checkpoint directory; one run's trainer (not its
+    supervisor) SIGKILLed once step ``TRAIN_KILL_AT`` is published.
+    Returns both runs' lines, losses and seconds."""
+    import os
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    runs = {}
+    for name in ("killed", "whole"):
+        ckpt = workdir / name
+        cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+               "--backoff", "1", "--", "--arch", TRAIN_ARCH,
+               "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+               "--seq", str(TRAIN_SEQ), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+               "--ckpt-dir", str(ckpt)]
+        log_path = workdir / f"{name}.log"
+        runs[name] = {"cmd": cmd, "log": log_path,
+                      "file": open(log_path, "w"), "t0": time.perf_counter()}
+        runs[name]["proc"] = subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=runs[name]["file"],
+            stderr=subprocess.STDOUT, start_new_session=True)
+    killed = runs["killed"]
+    published = workdir / "killed" / f"step_{TRAIN_KILL_AT:010d}"
+    deadline = time.perf_counter() + 600
+    try:
+        while not published.exists():
+            if killed["proc"].poll() is not None \
+                    or time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"train: {published.name} was never published:\n"
+                    + killed["log"].read_text()[-4000:])
+            time.sleep(0.02)
+        trainers = _children(killed["proc"].pid)
+        if len(trainers) != 1:
+            raise AssertionError(f"train: the supervisor has children "
+                                 f"{trainers}, not one trainer")
+        os.kill(trainers[0], signal.SIGKILL)
+        killed["killed_after_s"] = time.perf_counter() - killed["t0"]
+        while any("rc" not in run for run in runs.values()):
+            if time.perf_counter() > deadline:
+                raise AssertionError("train: the runs did not end within "
+                                     "600 s")
+            for run in runs.values():
+                if "rc" not in run and run["proc"].poll() is not None:
+                    run["rc"] = run["proc"].returncode
+                    run["s"] = time.perf_counter() - run["t0"]
+            time.sleep(0.05)
+    finally:
+        for run in runs.values():
+            if run["proc"].poll() is None:
+                os.killpg(run["proc"].pid, signal.SIGKILL)
+                run["proc"].wait(timeout=60)
+            run["file"].close()
+    out = {}
+    for name, run in runs.items():
+        lines = run["log"].read_text().splitlines()
+        for line in lines:
+            if line.startswith(("[train]", "[supervisor]", "[watchdog]")):
+                log(f"[train] {name}: {line}")
+        if run["rc"] != 0:
+            raise AssertionError(f"train: the {name} run exited "
+                                 f"{run['rc']}:\n" + "\n".join(lines[-60:]))
+        out[name] = {"lines": lines, "s": run["s"], "rc": run["rc"]}
+    out["killed"]["killed_after_s"] = killed["killed_after_s"]
+    return out
+
+
+def _check_train_runs(runs: Dict) -> Dict:
+    """The killed run restarted once and resumed at ``TRAIN_KILL_AT``; its
+    losses after the restart match the whole run's within
+    ``TRAIN_LOSS_TOL``; the whole run's loss fell."""
+    kl, wl = runs["killed"]["lines"], runs["whole"]["lines"]
+    restored = f"[train] restored checkpoint at step {TRAIN_KILL_AT}"
+    if restored not in kl or not any(x.startswith("[supervisor] attempt 1")
+                                     for x in kl) \
+            or not any(x.startswith("[supervisor] exited rc=-9")
+                       for x in kl):
+        raise AssertionError("train: the killed run did not restart from "
+                             f"step {TRAIN_KILL_AT}:\n" + "\n".join(kl[-60:]))
+    if any(x.startswith("[supervisor] attempt 1") for x in wl) or \
+            any("restored checkpoint" in x for x in wl):
+        raise AssertionError("train: the whole run restarted")
+    whole = _train_losses(wl)
+    resumed = _train_losses(kl[kl.index(restored):])
+    diffs = {}
+    for step in TRAIN_LOSS_STEPS:
+        if step not in whole or step not in resumed:
+            raise AssertionError(f"train: step {step}'s loss missing "
+                                 f"(whole {whole}, resumed {resumed})")
+        diffs[step] = abs(resumed[step] - whole[step])
+        if diffs[step] > TRAIN_LOSS_TOL:
+            raise AssertionError(
+                f"train: step {step}'s loss {resumed[step]} after the "
+                f"restart, {whole[step]} uninterrupted (tolerance "
+                f"{TRAIN_LOSS_TOL})")
+    first, last = min(whole), max(whole)
+    if not whole[last] < whole[first]:
+        raise AssertionError(f"train: the loss did not fall: {whole}")
+    return {"losses": whole, "resumed_losses": resumed,
+            "resume_diff": diffs, "tolerance": TRAIN_LOSS_TOL,
+            "whole_s": runs["whole"]["s"], "killed_s": runs["killed"]["s"],
+            "killed_after_s": runs["killed"]["killed_after_s"]}
+
+
+def _attention_grads(q, k, v, g, causal: bool):
+    """Output and q/k/v gradients through ``KernelAttention`` and through
+    autograd over the plain model attention, from the same fp32 leaves
+    (B, H, S, D) and output gradient."""
+    import torch
+
+    from repro_torch.models import attention as A
+
+    def leaves():
+        return [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    qk, kk, vk = leaves()
+    out_k = A.KernelAttention.apply(qk, kk, vk, causal, A.KV_CHUNK)
+    grads_k = torch.autograd.grad(out_k, (qk, kk, vk), g)
+    qp, kp, vp = leaves()
+    plain = A.plain_causal_attention if causal else A.chunked_attention
+    out_p = plain(*(t.transpose(1, 2) for t in (qp, kp, vp))).transpose(1, 2)
+    grads_p = torch.autograd.grad(out_p, (qp, kp, vp), g)
+    errs = {}
+    for name, a, b in (("out", out_k, out_p), *zip(("dq", "dk", "dv"),
+                                                    grads_k, grads_p)):
+        a, b = a.detach(), b.detach()
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30))
+    return errs
+
+
+def _attention_train_checks(device, hw, flush) -> Dict:
+    """Phase 12 (c): ``KernelAttention`` against autograd through the
+    plain attention at the training shape (causal) and at every compiled
+    head dim (causal and not); the guard on a gradient-carrying input; the
+    kernel's forward timed against its bound and SDPA, and the backward
+    (the plain recompute and its gradient) timed."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import attention as A
+
+    cfg = ARCHS[TRAIN_ARCH]
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def mk(shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.5
+
+    checks = []
+    shape = (TRAIN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.eff_head_dim)
+    cases = [(shape, True)] + [(TRAIN_ATTN_SMALL + (d,), c)
+                               for d in K.HEAD_DIMS for c in (True, False)]
+    for shp, causal in cases:
+        q, k, v, g = (mk(shp) for _ in range(4))
+        errs = _attention_grads(q, k, v, g, causal)
+        checks.append({"shape": list(shp), "causal": causal, **errs})
+        if max(errs.values()) > TRAIN_GRAD_TOL or \
+                any(x != x for x in errs.values()):
+            raise AssertionError(f"train: KernelAttention at {shp}, causal "
+                                 f"{causal}: {errs} (tolerance "
+                                 f"{TRAIN_GRAD_TOL})")
+    log(f"[train] KernelAttention vs plain autograd, largest error "
+        f"{max(max(c[x] for x in ('out', 'dq', 'dk', 'dv')) for c in checks):.3e}"
+        f" over {len(checks)} cases (tolerance {TRAIN_GRAD_TOL})")
+    q, k, v, g = (mk(shape) for _ in range(4))
+    try:
+        K.flash_attention(q.requires_grad_(), k, v)
+    except RuntimeError as exc:
+        if "KernelAttention" not in str(exc):
+            raise
+    else:
+        raise AssertionError("train: the kernel took a gradient-carrying "
+                             "input outside KernelAttention")
+    q = q.detach()
+    at = _serve_kernel_at(q, k, v, hw, flush, causal=True)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v), causal=True,
+                                chunk=A.KV_CHUNK)
+    at["backward_ms"] = time_ms(lambda: A.KernelAttention.backward(ctx, g),
+                                5, flush)
+    log(f"[train] kernel at {at['shape']}: {at['ms']:.4f} ms (bound "
+        f"{at['bound_ms']:.4f}, plain {at['plain_ms']:.4f}, SDPA fp32 "
+        f"{at['library_ms']:.4f} {at['library_backend']}); backward (plain "
+        f"recompute) {at['backward_ms']:.4f} ms")
+    return {"checks": checks, "at_train": at}
+
+
+def _train_step_profile(device, backward_ms: float) -> Dict:
+    """Phase 12 (b): one train step of ``TRAIN_ARCH`` at the training
+    shape in this process: step seconds, tokens/s, peak memory, the card's
+    busy share, the kernel's launches a step and its plain version's
+    calls, and the plain backward's share of the step (24 of its timed
+    calls over the step)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, make_batch, to_device
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.train_step import (StepConfig, init_train_state,
+                                              make_train_step)
+
+    cfg = ARCHS[TRAIN_ARCH]
+    model = build_model(cfg)
+    opt = AdamW(lr=warmup_cosine(3e-4, max(TRAIN_STEPS // 10, 1),
+                                 TRAIN_STEPS))
+    state = init_train_state(model, opt,
+                             torch.Generator(device=device).manual_seed(0),
+                             device)
+    step = make_train_step(model, opt, StepConfig(loss_chunks=1))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [to_device(make_batch(dcfg, i), device)
+               for i in range(TRAIN_TIMED_STEPS + 2)]
+    out = {"arch": TRAIN_ARCH, "params": sum(
+        p.numel() for p in state.params.parameters()),
+        "shape": [TRAIN_BATCH, TRAIN_SEQ], "remat": "nothing_saveable"}
+    with _AttentionRoute() as route:
+        state, m = step(state, batches[0])                 # warm-up
+        torch.cuda.synchronize()
+        before = K.flash_attention.launches
+        state, m = step(state, batches[1])
+        torch.cuda.synchronize()
+        out["launches_a_step"] = K.flash_attention.launches - before
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            state, m = step(state, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out["step_s"] = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        prof = _busy_share(lambda: step(state, batches[1]))
+        out["plain_calls"] = route.plain_calls
+    out["loss"] = loss
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / out["step_s"]
+    out["busy_share"] = prof["busy_share"]
+    out["profile"] = prof
+    out["plain_backward_share"] = cfg.n_layers * backward_ms / 1e3 \
+        / out["step_s"]
+    if not loss == loss or out["launches_a_step"] == 0 \
+            or out["plain_calls"]:
+        raise AssertionError(f"train: step loss {loss}, kernel launches "
+                             f"{out['launches_a_step']}, plain calls "
+                             f"{out['plain_calls']}")
+    busy = prof["busy_share"]
+    log(f"[train] {TRAIN_ARCH} step at {TRAIN_BATCH}x{TRAIN_SEQ}: "
+        f"{out['step_s']:.4f} s, {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['peak_memory_gb']:.2f} GB, card busy "
+        f"{busy if isinstance(busy, str) else f'{100 * busy:.1f} %'}, "
+        f"attention launches a step {out['launches_a_step']} (predicted "
+        f"{2 * cfg.n_layers}), plain calls {out['plain_calls']}, plain "
+        f"backward {100 * out['plain_backward_share']:.1f} % of the step")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_smoke_archs(device) -> Dict:
+    """Phase 12 (d): one train step of every SMOKE arch on the card; the
+    loss finite, every parameter's gradient there and finite."""
+    import torch
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.data.pipeline import DataConfig, make_batch, to_device
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, constant_lr
+    from repro_torch.train.train_step import (StepConfig, init_train_state,
+                                              loss_and_grads,
+                                              make_train_step)
+
+    out = {}
+    for name, cfg in SMOKES.items():
+        model = build_model(cfg)
+        opt = AdamW(lr=constant_lr(1e-3))
+        state = init_train_state(
+            model, opt, torch.Generator(device=device).manual_seed(0),
+            device)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_SEQ,
+                          global_batch=TRAIN_SMOKE_BATCH,
+                          frontend=cfg.frontend,
+                          frontend_len=cfg.frontend_len,
+                          frontend_dim=cfg.frontend_dim)
+        batch = to_device(make_batch(dcfg, 0), device)
+        loss, grads = loss_and_grads(model, state.params, batch,
+                                     StepConfig())
+        bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
+        n_params = sum(1 for _ in state.params.parameters())
+        before = K.flash_attention.launches
+        state, m = make_train_step(model, opt)(state, batch)
+        launches = K.flash_attention.launches - before
+        ok = (len(grads) == n_params and not bad
+              and bool(torch.isfinite(m["loss"])))
+        out[name] = {"loss": float(m["loss"]), "grad_norm":
+                     float(m["grad_norm"]), "leaves": len(grads),
+                     "launches": launches}
+        log(f"[train] {name}: loss {float(m['loss']):.4f}, grad norm "
+            f"{float(m['grad_norm']):.4f}, {len(grads)} of {n_params} "
+            f"parameters with a finite gradient, {launches} attention "
+            f"launches")
+        if not ok:
+            raise AssertionError(f"train: {name}: loss {float(loss)}, "
+                                 f"non-finite gradients {bad[:5]}")
+    return out
+
+
+def phase_train(hw, device) -> Dict:
+    """Phase 12: training on the card (the supervisor CLI with a SIGKILL
+    and a resume, a step profiled in this process, KernelAttention's
+    gradients, every SMOKE arch's step)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.evaluate import L2_FLUSH_BYTES
+    from repro_torch.kernels.attention import kernel as K
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = ARTIFACT_DIR / "train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        runs = _check_train_runs(_train_runs(workdir))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[train] {TRAIN_ARCH}: losses {runs['losses']}; resumed "
+        f"{runs['resumed_losses']}, differences {runs['resume_diff']} "
+        f"(tolerance {TRAIN_LOSS_TOL}); whole run {runs['whole_s']:.1f} s, "
+        f"killed run {runs['killed_s']:.1f} s (killed after "
+        f"{runs['killed_after_s']:.1f} s)")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    attention = _attention_train_checks(device, hw, flush)
+    del flush
+    K.flash_attention.launches = 0
+    step = _train_step_profile(device,
+                               attention["at_train"]["backward_ms"])
+    smoke = _train_smoke_archs(device)
+    launches = K.flash_attention.launches
+    if launches == 0:
+        raise AssertionError("train: the kernel never launched")
+    out = {"runs": runs, "step": step, "attention": attention,
+           "smoke": smoke, "launches_total": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[time] train {out['phase_s']:.1f} s")
+    return out
+
+
 def run_port(port: Port, hw, device):
     """Phases 3-6 for one kernel; returns the head and the rest of its
     report entry (the times go between them), its measured records and the
@@ -2494,6 +2927,9 @@ def main() -> int:
     serve["service_serve_kind"] = service["serve_kind"]
     serve["zoo"] = phase_serve_zoo(hw, device)
 
+    # phase 12: training on the card (reported with the rest in phase 11)
+    train = phase_train(hw, device)
+
     # phase 11: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -2516,6 +2952,11 @@ def main() -> int:
             entry["at_serve_zoo"] = {r["arch"]: r["attention"]
                                      for r in zoo["archs"]
                                      if r.get("attention")}
+            # and phase 12's training steps in this process
+            entry["launches"] += train["launches_total"]
+            entry["launches_train"] = train["launches_total"]
+            entry["launches_train_step"] = train["step"]["launches_a_step"]
+            entry["at_train"] = train["attention"]["at_train"]
         for tag in port.sweeps[1:]:
             entry["at_" + bench.inputs[tag].tag] = kernel_times(
                 port, bench, bench.inputs[tag], port_records[tag], hw,
@@ -2552,7 +2993,7 @@ def main() -> int:
               "not_ported": [{"name": n, "replaces": r}
                              for n, r in NOT_PORTED],
               "transfer": transfer, "exact_hit": exact, "fleet": fleet,
-              "service": service, "serve": serve,
+              "service": service, "serve": serve, "train": train,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
               "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,

@@ -27,7 +27,10 @@ configuration fit at D = 256.
 
 ``flash_attention`` launches the kernel for CUDA tensors and raises when the
 build or the launch fails; it takes ``flash_attention_plain`` only for
-tensors on the CPU.
+tensors on the CPU.  Its output has no gradient: on CUDA tensors it
+refuses an input that requires one while grad mode is on, since training
+reaches it through ``repro_torch.models.attention.KernelAttention``,
+whose backward recomputes the attention in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -144,6 +147,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's output has no gradient: differentiate "
+            "through repro_torch.models.attention.KernelAttention, whose "
+            "backward recomputes the attention in plain PyTorch")
     b, h, s, d = q.shape
     if -(-s // block_q) > MAX_Q_BLOCKS:
         raise ValueError(f"S / block_q must be at most {MAX_Q_BLOCKS}")

@@ -36,11 +36,12 @@ def product(a: Tuple[torch.Tensor, torch.Tensor],
             b: Tuple[torch.Tensor, torch.Tensor],
             acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """acc + a·b from split operands, in the kernels' order: small·big,
-    big·small, then big·big."""
+    big·small, then big·big.  No product's output is written in place: a
+    selective rematerialization that saves the products (the train step's
+    "dots_saveable") hands the saved tensor back in its recompute."""
     (a_big, a_small), (b_big, b_small) = a, b
     out = torch.matmul(a_small, b_big)
     if acc is not None:
         out = acc + out
-    out += torch.matmul(a_big, b_small)
-    out += torch.matmul(a_big, b_big)
-    return out
+    out = out + torch.matmul(a_big, b_small)
+    return out + torch.matmul(a_big, b_big)

@@ -3,8 +3,8 @@ MLA (multi-head latent attention with a compressed KV cache), in PyTorch.
 
 The JAX package's ``repro.models.attention`` carried over.  There, prefill
 and training compute attention in plain JAX and name the Pallas kernel as
-the TPU drop-in; here GQA prefill goes through the port's hand-written
-kernel (``repro_torch.kernels.attention.kernel.flash_attention``,
+the TPU drop-in; here GQA prefill and training go through the port's
+hand-written kernel (``repro_torch.kernels.attention.kernel.flash_attention``,
 ``csrc/attention.cu``), causal or not as the config says (an encoder's
 self-attention is not; RoPE is applied there too, as in JAX): q as
 (B, H, S, D), K and V repeated from the kv heads to H heads (query head j
@@ -13,6 +13,15 @@ order), all cast to fp32, scale 1/sqrt(D), the kernel's default
 parameters, and the output cast back to the model's dtype.  The wrapper
 takes its plain version only for CPU tensors; on the card a kernel that
 fails to build or launch raises.
+
+Training differentiates through ``KernelAttention``: its forward is the
+kernel, its backward recomputes the attention in plain PyTorch from the
+saved q, k and v (``plain_causal_attention``, or ``chunked_attention``
+for the encoder's) and differentiates that, so the gradient is the one
+the JAX package takes through its plain training attention.  The repeat
+of K and V over the kv heads and the fp32 casts stay outside the
+Function; autograd carries their gradients back to the kv heads and the
+model's dtype.
 
 MLA prefill (V's head dim differs from the qk dim), cross-attention (its
 query length differs from its key length, and the kernel takes one S for
@@ -75,16 +84,47 @@ def gqa_defs(cfg: AttnConfig) -> Dict[str, ParamDef]:
     return defs
 
 
+class KernelAttention(torch.autograd.Function):
+    """Attention of fp32 (B, H, S, D) q, k, v, K and V already repeated to
+    H heads: the hand-written kernel forward; backward, the plain model
+    attention recomputed from the saved q, k, v and differentiated
+    (causal: ``plain_causal_attention`` over query chunks of ``chunk``
+    rows; not causal: ``chunked_attention`` over key chunks of
+    ``chunk``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().transpose(1, 2).requires_grad_()
+                   for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            if ctx.causal:
+                out = plain_causal_attention(q, k, v, chunk=ctx.chunk)
+            else:
+                out = chunked_attention(q, k, v, chunk=ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v),
+                                             grad_out.transpose(1, 2))
+        return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+                None, None)
+
+
 def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool = True) -> torch.Tensor:
+                     causal: bool = True,
+                     chunk: int = KV_CHUNK) -> torch.Tensor:
     """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D) through the
-    hand-written kernel, causal or not; (B, S, H, D) in q's dtype."""
+    hand-written kernel (``KernelAttention``), causal or not; (B, S, H, D)
+    in q's dtype.  ``chunk`` is the backward's plain recompute's."""
     h, hkv = q.shape[2], k.shape[2]
     rep = h // hkv
     qh = q.transpose(1, 2).float().contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(rep, dim=1).float()
               .contiguous() for t in (k, v))
-    out = flash_attention(qh, kh, vh, causal=causal)
+    out = KernelAttention.apply(qh, kh, vh, causal, chunk)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -122,12 +162,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def plain_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor) -> torch.Tensor:
+                           v: torch.Tensor,
+                           chunk: int = PLAIN_Q_CHUNK) -> torch.Tensor:
     """Causal attention of q (B, S, H, D) over k (B, S, Hkv, D) and
     v (B, S, Hkv, Dv) in plain PyTorch, as the JAX package's
     ``_chunked_attention`` rounds: q scaled in its dtype, scores in fp32,
     the unnormalized p cast to V's dtype before the PV product in fp32,
-    then divided by its fp32 row sum.  Returns fp32 (B, S, H, Dv)."""
+    then divided by its fp32 row sum; ``chunk`` query rows at a time,
+    each over the keys up to its last row.  Returns fp32 (B, S, H, Dv)."""
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     rep = h // hkv
@@ -135,8 +177,8 @@ def plain_causal_attention(q: torch.Tensor, k: torch.Tensor,
     kf, vf = k.float(), v.float()
     out = torch.empty((b, s, h, dv), dtype=torch.float32, device=q.device)
     kv_pos = torch.arange(s, device=q.device)
-    for q0 in range(0, s, PLAIN_Q_CHUNK):
-        q1 = min(s, q0 + PLAIN_Q_CHUNK)
+    for q0 in range(0, s, chunk):
+        q1 = min(s, q0 + chunk)
         sij = torch.einsum("bshrd,bthd->bhrst", qf[:, q0:q1], kf[:, :q1])
         mask = kv_pos[None, :q1] <= torch.arange(q0, q1,
                                                  device=q.device)[:, None]
@@ -154,11 +196,14 @@ def gqa_apply(
     x: torch.Tensor,                     # (B, S, D)
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict] = None,        # decode: attend over the cache
+    kv_chunk: int = KV_CHUNK,
 ) -> Tuple[torch.Tensor, Dict]:
     """Prefill (``cache is None``): returns (y, {"k", "v"}), the roped K
     and V for the caller's cache.  Decode: returns (y, {"k_new",
     "v_new"}), the current token's K/V; the caller writes every layer's
-    into the stacked cache at once (``update_stacked_cache``)."""
+    into the stacked cache at once (``update_stacked_cache``).
+    ``kv_chunk`` is the chunk of the plain attention the backward
+    recomputes (``KernelAttention``)."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
@@ -170,7 +215,7 @@ def gqa_apply(
             else torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = kernel_attention(q, k, v, causal=cfg.causal)
+        out = kernel_attention(q, k, v, causal=cfg.causal, chunk=kv_chunk)
         new_cache = {"k": k, "v": v}
     else:
         # single-token decode over the stored prefix plus the current token
@@ -238,10 +283,12 @@ def mla_apply(
     x: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict] = None,
+    kv_chunk: int = PLAIN_Q_CHUNK,
 ) -> Tuple[torch.Tensor, Dict]:
     """Prefill (``cache is None``): returns (y, {"c_kv", "k_rope"}), the
-    latent and the roped shared key for the caller's cache.  Decode:
-    returns (y, {"c_kv_new", "k_rope_new"})."""
+    latent and the roped shared key for the caller's cache, the attention
+    ``kv_chunk`` query rows at a time.  Decode: returns (y, {"c_kv_new",
+    "k_rope_new"})."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
@@ -262,7 +309,7 @@ def mla_apply(
         # concatenated effective head dims: [nope | rope]
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope_r.expand(b, s, h, dr)], dim=-1)
-        out = plain_causal_attention(q_full, k_full, v)
+        out = plain_causal_attention(q_full, k_full, v, chunk=kv_chunk)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope_r[:, :, 0, :]}
     else:
         pos = cache["pos"]

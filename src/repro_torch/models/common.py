@@ -18,11 +18,14 @@ fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Params = Dict[str, Any]
 
@@ -172,6 +175,45 @@ def mlp_apply(p: Params, x: torch.Tensor,
 
 
 # =============================================================================
+# Rematerialization
+# =============================================================================
+# the JAX package's jax.checkpoint policies that save some values: the
+# outputs of its dots (dot_general), all of them or those without batch
+# dimensions; PyTorch's GEMMs are mm/addmm (2-D) and bmm (batched)
+_SAVED_OPS = {
+    "dots_saveable": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default),
+    "dots_with_no_batch_dims": (torch.ops.aten.mm.default,
+                                torch.ops.aten.addmm.default),
+}
+REMAT_POLICIES = ("none", "nothing_saveable") + tuple(_SAVED_OPS)
+
+
+def _save_ops(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_apply(fn: Callable, policy: str, *args):
+    """``fn(*args)`` under one of the JAX package's remat policies: "none"
+    keeps every activation for the backward pass; "nothing_saveable"
+    keeps only the inputs and recomputes ``fn`` in the backward pass;
+    "dots_saveable" and "dots_with_no_batch_dims" keep the GEMMs' outputs
+    (all of them, or the unbatched ones) and recompute the rest."""
+    if policy == "none":
+        return fn(*args)
+    if policy == "nothing_saveable":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy!r}; one of "
+                         f"{REMAT_POLICIES}")
+    ctx = functools.partial(create_selective_checkpoint_contexts,
+                            functools.partial(_save_ops, _SAVED_OPS[policy]))
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+
+
+# =============================================================================
 # Caches stacked along the layers
 # =============================================================================
 def broadcast_cache(tree: Dict, lead: Tuple[int, ...]) -> Dict:
@@ -224,9 +266,10 @@ def cross_entropy_from_hidden(
 # Parameters as modules
 # =============================================================================
 class ParamTree(torch.nn.Module):
-    """A ParamDef tree as a module: a leaf is a parameter (no gradient:
-    the port serves, training is a later slice), a subtree a child
-    module, and a stacked subtree (``layers`` leading axis) a
+    """A ParamDef tree as a module: a leaf is a parameter (frozen, as
+    serving takes it; ``requires_grad_()`` makes every leaf trainable, as
+    ``repro_torch.train.train_step.init_train_state`` does), a subtree a
+    child module, and a stacked subtree (``layers`` leading axis) a
     ``ModuleList`` of one tree a layer; a subtree stacked twice (Zamba2's
     superblocks of layers) a ``ModuleList`` of ``ModuleList``s.
     ``p["wq"]``, ``p.get("bq")`` and ``"w_gate" in p`` read it as the JAX

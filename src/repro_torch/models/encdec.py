@@ -22,6 +22,7 @@ the cache passed in, in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -30,8 +31,8 @@ from repro_torch.models.attention import (chunked_attention, gqa_apply,
                                           gqa_defs, gqa_init_cache)
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
-                                       mlp_apply, mlp_defs, rms_norm,
-                                       stack_caches, stack_defs)
+                                       mlp_apply, mlp_defs, remat_apply,
+                                       rms_norm, stack_caches, stack_defs)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import attn_config, update_stacked_cache
 
@@ -75,17 +76,23 @@ def encdec_defs(cfg: ArchConfig) -> Dict[str, Any]:
     }
 
 
-def encode(cfg: ArchConfig, params: Params,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor,
+           remat: str = "none") -> torch.Tensor:
     """Frames (B, T, frontend_dim) -> the encoder's normed output
-    (B, T, D), its self-attention on the kernel, not causal."""
+    (B, T, D), its self-attention on the kernel, not causal; each layer
+    under the remat policy ``remat``."""
     acfg = attn_config(cfg)._replace(causal=False)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    x = dense(frames.to(dt), params["frontend_proj"])
-    for lp in params["enc"]:
+
+    def layer(x, lp):
         h, _ = gqa_apply(lp["attn"], acfg, rms_norm(x, lp["ln1"]))
         x = x + h
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.activation)
+        return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]),
+                             cfg.activation)
+
+    x = dense(frames.to(dt), params["frontend_proj"])
+    for lp in params["enc"]:
+        x = remat_apply(functools.partial(layer, lp=lp), remat, x)
     return rms_norm(x, params["enc_ln"])
 
 
@@ -117,14 +124,21 @@ def _dec_block(cfg: ArchConfig, lp: Params, x: torch.Tensor, enc_kv,
     return x, new_kv
 
 
-@torch.no_grad()
 def encdec_loss(cfg: ArchConfig, params: Params, batch: Dict,
-                loss_chunks: int = 1) -> torch.Tensor:
-    """Forward only, as ``transformer.lm_loss``."""
-    enc_out = encode(cfg, params, batch["frames"])
+                remat: str = "nothing_saveable", loss_chunks: int = 1,
+                **_) -> torch.Tensor:
+    """The mean next-token cross-entropy, differentiable; any ``remat``
+    but "none" recomputes each encoder and each decoder layer in the
+    backward pass, as the JAX package does."""
+    policy = "none" if remat == "none" else "nothing_saveable"
+    enc_out = encode(cfg, params, batch["frames"], policy)
+
+    def layer(x, lp):
+        return _dec_block(cfg, lp, x, _enc_kv(cfg, lp["xattn"], enc_out))[0]
+
     x = params["embed"][batch["tokens"].long()]
     for lp in params["dec"]:
-        x, _ = _dec_block(cfg, lp, x, _enc_kv(cfg, lp["xattn"], enc_out))
+        x = remat_apply(functools.partial(layer, lp=lp), policy, x)
     hidden = rms_norm(x, params["final_ln"])
     return cross_entropy_from_hidden(hidden, params["lm_head"],
                                      batch["labels"], seq_chunks=loss_chunks)

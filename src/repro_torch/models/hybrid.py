@@ -22,6 +22,7 @@ projects a second time; the numbers are the same.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -29,8 +30,8 @@ import torch
 from repro_torch.models.attention import gqa_apply, gqa_defs, gqa_init_cache
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
-                                       mlp_apply, mlp_defs, rms_norm,
-                                       stack_caches, stack_defs)
+                                       mlp_apply, mlp_defs, remat_apply,
+                                       rms_norm, stack_caches, stack_defs)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.ssm import (Mamba2Config, mamba2_apply, mamba2_defs,
                                     mamba2_init_cache)
@@ -96,17 +97,28 @@ def _zamba_shared_apply(cfg: ArchConfig, sp: Params, x: torch.Tensor,
     return x, new_c
 
 
-@torch.no_grad()
 def zamba2_loss(cfg: ArchConfig, params: Params, batch: Dict,
-                loss_chunks: int = 1) -> torch.Tensor:
-    """Forward only, as ``transformer.lm_loss``."""
+                remat: str = "nothing_saveable", loss_chunks: int = 1,
+                **_) -> torch.Tensor:
+    """The mean next-token cross-entropy, differentiable.  As in the JAX
+    package, any ``remat`` but "none" recomputes each Mamba2 layer, and
+    each superblock (its Mamba2 layers and the shared block), in the
+    backward pass ("nothing_saveable"); other options are not read."""
+    policy = "none" if remat == "none" else "nothing_saveable"
     mcfg = mamba_config(cfg)
+
+    def mamba_layer(x, lp):
+        h, _ = mamba2_apply(lp["mamba"], mcfg, rms_norm(x, lp["ln"]))
+        return x + h
+
+    def superblock(x, sb):
+        for lp in sb:
+            x = remat_apply(functools.partial(mamba_layer, lp=lp), policy, x)
+        return _zamba_shared_apply(cfg, params["shared"], x)[0]
+
     x = _embed(params, batch)
     for sb in params["supers"]:
-        for lp in sb:
-            h, _ = mamba2_apply(lp["mamba"], mcfg, rms_norm(x, lp["ln"]))
-            x = x + h
-        x, _ = _zamba_shared_apply(cfg, params["shared"], x)
+        x = remat_apply(functools.partial(superblock, sb=sb), policy, x)
     hidden = rms_norm(x, params["final_ln"])
     return cross_entropy_from_hidden(hidden, params["lm_head"],
                                      batch["labels"], seq_chunks=loss_chunks)
@@ -201,17 +213,24 @@ def xlstm_defs(cfg: ArchConfig) -> Dict[str, Any]:
     }
 
 
-@torch.no_grad()
 def xlstm_loss(cfg: ArchConfig, params: Params, batch: Dict,
-               loss_chunks: int = 1) -> torch.Tensor:
-    """Forward only, as ``transformer.lm_loss``."""
+               remat: str = "nothing_saveable", loss_chunks: int = 1,
+               **_) -> torch.Tensor:
+    """The mean next-token cross-entropy, differentiable; any ``remat``
+    but "none" recomputes each mLSTM/sLSTM pair in the backward pass, as
+    the JAX package does."""
+    policy = "none" if remat == "none" else "nothing_saveable"
     xcfg = xlstm_config(cfg)
-    x = _embed(params, batch)
-    for lp in params["pairs"]:
+
+    def pair(x, lp):
         h, _ = mlstm_apply(lp["mlstm"], xcfg, rms_norm(x, lp["ln_m"]))
         x = x + h
         h, _ = slstm_apply(lp["slstm"], xcfg, rms_norm(x, lp["ln_s"]))
-        x = x + h
+        return x + h
+
+    x = _embed(params, batch)
+    for lp in params["pairs"]:
+        x = remat_apply(functools.partial(pair, lp=lp), policy, x)
     hidden = rms_norm(x, params["final_ln"])
     return cross_entropy_from_hidden(hidden, params["lm_head"],
                                      batch["labels"], seq_chunks=loss_chunks)

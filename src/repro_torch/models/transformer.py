@@ -13,6 +13,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -22,8 +23,8 @@ from repro_torch.models.attention import (AttnConfig, gqa_apply, gqa_defs,
                                           mla_defs, mla_init_cache)
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
-                                       mlp_apply, mlp_defs, rms_norm,
-                                       stack_defs)
+                                       mlp_apply, mlp_defs, remat_apply,
+                                       rms_norm, stack_defs)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.moe import (MoEConfig, moe_apply, moe_apply_dropless,
                                     moe_defs)
@@ -104,9 +105,9 @@ def _attn(cfg: ArchConfig, lp: Params, h: torch.Tensor, **kw):
     return fn(lp["attn"], attn_config(cfg), h, **kw)
 
 
-def _block_apply(cfg: ArchConfig, lp: Params, x: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h, _ = _attn(cfg, lp, rms_norm(x, lp["ln1"]))
+def _block_apply(cfg: ArchConfig, lp: Params, x: torch.Tensor,
+                 kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, _ = _attn(cfg, lp, rms_norm(x, lp["ln1"]), kv_chunk=kv_chunk)
     x = x + h
     h = rms_norm(x, lp["ln2"])
     if cfg.n_experts:
@@ -126,24 +127,31 @@ def embed_inputs(cfg: ArchConfig, params: Params,
     return x
 
 
-def forward_hidden(cfg: ArchConfig, params: Params, batch: Dict
+def forward_hidden(cfg: ArchConfig, params: Params, batch: Dict,
+                   remat: str = "nothing_saveable",
+                   kv_chunk: int = 1024
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token (+prefix) embeddings -> final hidden states, layer by layer;
+    """Token (+prefix) embeddings -> final hidden states, layer by layer,
+    each layer under the remat policy ``remat`` (``common.remat_apply``);
     and the MoE layers' summed auxiliary loss."""
     x = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["blocks"]:
-        x, a = _block_apply(cfg, lp, x)
+        x, a = remat_apply(
+            functools.partial(_block_apply, cfg, lp, kv_chunk=kv_chunk),
+            remat, x)
         aux = aux + a
     return rms_norm(x, params["final_ln"]), aux
 
 
-@torch.no_grad()
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict,
+            remat: str = "nothing_saveable", kv_chunk: int = 1024,
             loss_chunks: int = 1) -> torch.Tensor:
-    """Forward only: the training step and its backward pass are a later
-    slice of the port."""
-    hidden, aux = forward_hidden(cfg, params, batch)
+    """The mean next-token cross-entropy (plus the MoE auxiliary loss),
+    differentiable: every layer under the remat policy ``remat``, GQA
+    attention on the kernel through ``KernelAttention`` (its backward
+    recomputing the plain attention ``kv_chunk`` rows at a time)."""
+    hidden, aux = forward_hidden(cfg, params, batch, remat, kv_chunk)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         hidden = hidden[:, batch["patch_embeds"].shape[1]:]
     ce = cross_entropy_from_hidden(hidden, _w_out(params), batch["labels"],

@@ -924,3 +924,101 @@ def test_the_serve_cli_runs_on_the_card(cuda, tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "qwen2.5-smoke on cuda:0" in out.stdout
     assert "tuned live (trials=" in out.stdout
+
+
+# --- training: KernelAttention, the kernel's guard, a step on the card --------
+TRAIN_GRAD_TOL = 1e-4
+
+
+def _kernel_and_plain_grads(shape, causal, device, seed=0):
+    """Output and q/k/v gradients through KernelAttention (the kernel
+    forward) and through autograd over the plain model attention, from the
+    same fp32 leaves and output gradient."""
+    from repro_torch.models import attention as MA
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = [torch.randn(shape, generator=gen, device=device) * 0.5
+            for _ in range(4)]
+    g = base[3]
+
+    def leaves():
+        return [t.clone().requires_grad_() for t in base[:3]]
+
+    qk, kk, vk = leaves()
+    out_k = MA.KernelAttention.apply(qk, kk, vk, causal, MA.KV_CHUNK)
+    grads_k = torch.autograd.grad(out_k, (qk, kk, vk), g)
+    qp, kp, vp = leaves()
+    plain = MA.plain_causal_attention if causal else MA.chunked_attention
+    out_p = plain(*(t.transpose(1, 2) for t in (qp, kp, vp))).transpose(1, 2)
+    grads_p = torch.autograd.grad(out_p, (qp, kp, vp), g)
+    return (out_k.detach(), *grads_k), (out_p.detach(), *grads_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+def test_kernel_attention_gradients_match_plain_autograd(cuda, d, causal):
+    """Tolerance 1e-4 of the largest magnitude: the forward is the kernel
+    (3xTF32, fp32-accurate) against the plain fp32 attention, and the
+    gradients are the plain recompute's own."""
+    before = A.flash_attention.launches
+    got, want = _kernel_and_plain_grads((2, 3, 200, d), causal, cuda)
+    assert A.flash_attention.launches == before + 1
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err < TRAIN_GRAD_TOL, (name, err)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_gradient_carrying_input_outside_the_function(cuda):
+    q, k, v = _attention_args((1, 2, 128, 32), cuda)
+    before = A.flash_attention.launches
+    with pytest.raises(RuntimeError, match="KernelAttention"):
+        A.flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        A.flash_attention(q, k, v)
+    assert A.flash_attention.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_a_train_step_of_qwen_smoke_runs_on_the_card(cuda):
+    """qwen1.5-smoke's loss and gradients on the card against the CPU from
+    the same weights, within 1e-4 relative (each leaf by its L2 norm; fp32
+    both, the kernel against its plain version, GEMMs in another order);
+    then one step on the card: two kernel launches a layer (the forward
+    and the remat recompute), every parameter moved."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.data.pipeline import DataConfig, make_batch, to_device
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, constant_lr
+    from repro_torch.train.train_step import (StepConfig, init_train_state,
+                                              loss_and_grads,
+                                              make_train_step)
+
+    cfg = SMOKES["qwen1.5-0.5b"]
+    model = build_model(cfg)
+    opt = AdamW(lr=constant_lr(1e-3))
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=2), 0)
+    cpu = init_train_state(model, opt, torch.Generator().manual_seed(0),
+                           "cpu")
+    card = init_train_state(model, opt, torch.Generator().manual_seed(0),
+                            "cpu")
+    card.params.to(cuda)
+    card = card._replace(opt=opt.init(dict(card.params.named_parameters())),
+                         step=card.step.to(cuda))
+    l_cpu, g_cpu = loss_and_grads(model, cpu.params, to_device(batch, "cpu"),
+                                  StepConfig())
+    l_card, g_card = loss_and_grads(model, card.params,
+                                    to_device(batch, cuda), StepConfig())
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+    for name, g in g_cpu.items():
+        err = float((g_card[name].cpu() - g).norm() / g.norm())
+        assert err < 1e-4, (name, err)
+    start = {k: p.detach().clone() for k, p in card.params.named_parameters()}
+    before = A.flash_attention.launches
+    card, m = make_train_step(model, opt)(card, to_device(batch, cuda))
+    assert A.flash_attention.launches - before == 2 * cfg.n_layers
+    assert bool(torch.isfinite(m["loss"]))
+    for k, p in card.params.named_parameters():
+        assert not torch.equal(p.detach(), start[k]), k

@@ -55,6 +55,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.fleet.worker_main",
                 "repro_torch.launch.fleet", "repro_torch.launch.signals",
                 "repro_torch.launch.daemon", "repro_torch.launch.serve",
+                "repro_torch.launch.train", "repro_torch.launch.supervisor",
+                "repro_torch.optim.adamw", "repro_torch.train.train_step",
+                "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.distributed.compression",
                 "repro_torch.configs", "repro_torch.configs.qwen2_5_3b",
                 "repro_torch.distributed.tuning",
                 "repro_torch.serve.engine", "repro_torch.serve.autotune"} | {
@@ -264,3 +269,31 @@ def test_tf32_tensor_core_rates_are_the_data_sheets():
     assert hwspec.H100_PCIE.tf32_flops == 378e12
     assert abs(2 * hwspec.H100_SXM.tf32_flops / 989e12 - 1) < 0.01
     assert abs(2 * hwspec.H100_PCIE.tf32_flops / 756e12 - 1) < 0.01
+
+
+def test_the_supervisor_and_train_cli_run_with_jax_and_repro_blocked(
+        tmp_path):
+    """The supervisor re-executes the trainer with the import block in
+    neither (a fresh interpreter), so the block is put into the trainer
+    directly: a SMOKE model trained on the CPU with checkpoints, then
+    resumed by the supervisor from the last one."""
+    import os
+
+    ckpt = str(tmp_path / "ck")
+    args = ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+            "--steps", "4", "--batch", "2", "--seq", "16", "--ckpt-every",
+            "2", "--ckpt-dir", ckpt]
+    trained = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.train", *args],
+        capture_output=True, text=True, timeout=300)
+    assert trained.returncode == 0, trained.stderr
+    assert "[train] done: final loss" in trained.stdout
+    resumed = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.supervisor", "--backoff", "0", "--", *args],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert resumed.returncode == 0, resumed.stderr
+    assert "[train] restored checkpoint at step 4" in resumed.stdout
+    assert "blocked import" not in trained.stderr + resumed.stderr

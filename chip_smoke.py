@@ -3,7 +3,7 @@
 NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
 and nbody (the paper's five benchmarks) and flash attention; then the
 cross-space transfer path of the ``ConfigStore``, the fleet, the tuning
-service and serving on the card.
+service, serving, training and the sharded train step on the card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -104,6 +104,20 @@ Then, kernel by kernel (the table ``PORTS``):
              input; the kernel's forward beside its bound and SDPA, and the
              backward timed. (d) One train step of every SMOKE arch on the
              card: a finite loss, every parameter with a finite gradient.
+13. sharded — the sharded train step and the fleet's whole-system mode
+             (``phase_sharded``), run after phase 12 and reported in phase
+             11: (a) qwen1.5-0.5b at full width and depth, the training
+             shape, through ``shard_train_state`` and ``make_train_step(
+             mesh=...)`` on a one-rank NCCL ``DeviceMesh`` on cuda:0, 3
+             timed steps after a warm-up, then the plain step from the same
+             state on the same batches: seconds, tokens/s, peak memory,
+             busy share and the kernel's launches a step (48 on rank 0's
+             local heads, the plain version 0) of both, their losses' and
+             gradient norms' relative difference, the sharded path's host
+             overhead.  (b) ``python -m repro_torch.launch.fleet --system
+             qwen2.5-3b`` on a subprocess lane on cuda:0: the six kernel
+             jobs measured on the card, the sharding (64 devices) and serve
+             jobs priced, one store; each job's trials, best and seconds.
 11. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
@@ -253,6 +267,17 @@ TRAIN_ATTN_SMALL = (1, 2, 256)                   # (B, H, S), then each D
 TRAIN_TIMED_STEPS = 3
 # one train step of every SMOKE arch on the card
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 64
+# phase 13, the sharded step: TRAIN_ARCH at the training shape through
+# shard_train_state / make_train_step(mesh=...) on a one-rank NCCL mesh,
+# SHARDED_TIMED_STEPS after one warm-up, beside the plain step on the same
+# batches from the same state; their losses and gradient norms a step
+# relative to the plain step's
+SHARDED_TIMED_STEPS = 3
+SHARDED_TOL = 1e-3
+# and the fleet's whole-system mode: every kernel measured on the lane's
+# card, the sharding layout (64 devices) and the serve geometry priced
+SYSTEM_ARCH = "qwen2.5-3b"
+SYSTEM_BUDGET = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2814,6 +2839,193 @@ def phase_train(hw, device) -> Dict:
     return out
 
 
+def _sharded_step(device) -> Dict:
+    """Phase 13 (a): TRAIN_ARCH's step through the sharded path on a
+    one-rank NCCL mesh, and the plain step, each from the same state on
+    the same batches: seconds, tokens/s, peak memory, busy share and the
+    kernel's launches a step of both; the losses' and gradient norms'
+    relative differences; the sharded path's extra host seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import (DataConfig, make_batch,
+                                           shard_batch, to_device)
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  default_rules)
+    from repro_torch.kernels.attention import kernel as K
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamW, warmup_cosine
+    from repro_torch.train.train_step import (StepConfig, init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+
+    cfg = ARCHS[TRAIN_ARCH]
+    model = build_model(cfg)
+    opt = AdamW(lr=warmup_cosine(3e-4, max(TRAIN_STEPS // 10, 1),
+                                 TRAIN_STEPS))
+    scfg = StepConfig(loss_chunks=1)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    hosts = [make_batch(dcfg, i) for i in range(SHARDED_TIMED_STEPS + 1)]
+    mesh = make_host_mesh(1, 1, "cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"sharded: the mesh runs over "
+                                 f"{dist.get_backend()}, not NCCL")
+        rules = default_rules(multi_pod=False)
+        paths = {}
+        for name in ("sharded", "plain"):
+            state = init_train_state(
+                model, opt, torch.Generator(device=device).manual_seed(0),
+                device)
+            if name == "sharded":
+                state = shard_train_state(state, model, mesh, rules)
+                step = make_train_step(model, opt, scfg, mesh=mesh,
+                                       rules=rules)
+                batches = [shard_batch(h, batch_shardings(mesh, rules, h))
+                           for h in hosts]
+            else:
+                step = make_train_step(model, opt, scfg)
+                batches = [to_device(h, device) for h in hosts]
+            out = {"losses": [], "grad_norms": []}
+            with _AttentionRoute() as route:
+                state, m = step(state, batches[0])           # warm-up
+                out["losses"].append(float(m["loss"]))
+                out["grad_norms"].append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.flash_attention.launches = 0
+                t0 = time.perf_counter()
+                for b in batches[1:]:
+                    state, m = step(state, b)
+                    out["losses"].append(float(m["loss"]))
+                    out["grad_norms"].append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                out["step_s"] = (time.perf_counter() - t0) \
+                    / SHARDED_TIMED_STEPS
+                out["launches_a_step"] = K.flash_attention.launches \
+                    / SHARDED_TIMED_STEPS
+                out["launches"] = K.flash_attention.launches
+                out["peak_memory_gb"] = torch.cuda.max_memory_allocated() \
+                    / 1e9
+                prof = _busy_share(lambda: step(state, batches[1]))
+                out["plain_calls"] = route.plain_calls
+            out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / out["step_s"]
+            out["busy_share"] = prof["busy_share"]
+            out["profile"] = prof
+            paths[name] = out
+            del state, batches, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    sh, pl = paths["sharded"], paths["plain"]
+    diff = {k: max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(sh[k], pl[k]))
+            for k in ("losses", "grad_norms")}
+    out = {"arch": TRAIN_ARCH, "shape": [TRAIN_BATCH, TRAIN_SEQ],
+           "mesh": [1, 1], "backend": "nccl", "sharded": sh, "plain": pl,
+           "rel_diff": diff, "tolerance": SHARDED_TOL,
+           "host_overhead_s": sh["step_s"] - pl["step_s"],
+           "launches_total": sh["launches"]}
+    for name, r in paths.items():
+        busy = r["busy_share"]
+        log(f"[sharded] {name:7s} {TRAIN_ARCH} at {TRAIN_BATCH}x{TRAIN_SEQ}: "
+            f"{r['step_s']:.4f} s a step, {r['tokens_per_s']:.0f} tokens/s, "
+            f"peak {r['peak_memory_gb']:.2f} GB, card busy "
+            f"{busy if isinstance(busy, str) else f'{100 * busy:.1f} %'}, "
+            f"attention launches a step {r['launches_a_step']:g}, plain "
+            f"calls {r['plain_calls']}; losses {r['losses']}")
+    log(f"[sharded] relative difference to the plain step: loss "
+        f"{diff['losses']:.3e}, grad norm {diff['grad_norms']:.3e} "
+        f"(tolerance {SHARDED_TOL}); the sharded path's host overhead "
+        f"{out['host_overhead_s']:.4f} s a step")
+    bad = [n for n, r in paths.items()
+           if r["launches_a_step"] != 2 * cfg.n_layers or r["plain_calls"]
+           or any(x != x for x in r["losses"])]
+    if bad or max(diff.values()) > SHARDED_TOL:
+        raise AssertionError(f"sharded: paths {bad} launched the kernel "
+                             f"otherwise than {2 * cfg.n_layers} times a "
+                             f"step or called its plain version; relative "
+                             f"differences {diff}")
+    return out
+
+
+def _system_fleet(hw, workdir: Path) -> Dict:
+    """Phase 13 (b): ``python -m repro_torch.launch.fleet --system`` on a
+    subprocess lane on cuda:0: each kernel job measured on the card, the
+    sharding and serve jobs priced, one store; each job's trials, best and
+    seconds, and the lane's launches of each kernel."""
+    import os
+
+    from repro_torch.core import hwspec
+    from repro_torch.kernels.registry import BENCHMARKS
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    out_path, store = workdir / "system.json", workdir / "store.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.fleet", "--system",
+           SYSTEM_ARCH, "--hw", hwspec.hardware_key(hw), "--budget",
+           str(SYSTEM_BUDGET), "--devices", FLEET_DEVICE, "--store",
+           str(store), "--out", str(out_path)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"sharded: the --system fleet exited "
+                             f"{res.returncode}:\n{res.stderr[-4000:]}")
+    rep = json.loads(out_path.read_text())
+    jobs = {j["job"]: j for j in rep["jobs"]}
+    kinds = sorted(j.partition(":")[0] for j in jobs)
+    launches = rep["lanes"][0]["launches"]
+    for name, j in sorted(jobs.items()):
+        log(f"[sharded] fleet {name:42s} {j['trials']:2d} trials, best "
+            f"{j['best_runtime_s'] * 1e3:10.4f} ms, {j['busy_s']:.3f} s of "
+            f"measurement, done at {j['elapsed_s']:.3f} s on the pool clock")
+    log(f"[sharded] fleet --system {SYSTEM_ARCH}: {len(jobs)} jobs, lane "
+        f"{rep['lanes'][0]['device_name']} launches {launches}; wall "
+        f"{wall:.1f} s")
+    unlaunched = [k for k in BENCHMARKS if not launches.get(k)]
+    bad = [n for n, j in jobs.items() if j["trials"] != SYSTEM_BUDGET
+           or not j["best_runtime_s"] < float("inf")]
+    if kinds != sorted(["kernel"] * len(BENCHMARKS) + ["serve", "sharding"]) \
+            or unlaunched or bad:
+        raise AssertionError(f"sharded: fleet jobs {kinds}, kernels the "
+                             f"lane never launched {unlaunched}, jobs short "
+                             f"of their budget or infinite {bad}")
+    from repro_torch.tuning import ConfigStore
+
+    return {"cmd": cmd[1:], "jobs": rep["jobs"], "lane_launches": launches,
+            "wall_s": wall, "store_entries": len(ConfigStore(str(store)))}
+
+
+def phase_sharded(hw, device) -> Dict:
+    """Phase 13: the sharded train step on a one-rank NCCL mesh beside the
+    plain step, and the fleet's whole-system mode on the card."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    step = _sharded_step(device)
+    workdir = ARTIFACT_DIR / "system"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        fleet = _system_fleet(hw, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = {"step": step, "fleet": fleet,
+           "launches_total": step["launches_total"],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[time] sharded {out['phase_s']:.1f} s")
+    return out
+
+
 def run_port(port: Port, hw, device):
     """Phases 3-6 for one kernel; returns the head and the rest of its
     report entry (the times go between them), its measured records and the
@@ -2930,6 +3142,9 @@ def main() -> int:
     # phase 12: training on the card (reported with the rest in phase 11)
     train = phase_train(hw, device)
 
+    # phase 13: the sharded step and the fleet's --system on the card
+    sharded = phase_sharded(hw, device)
+
     # phase 11: report
     t0 = time.perf_counter()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -2957,6 +3172,9 @@ def main() -> int:
             entry["launches_train"] = train["launches_total"]
             entry["launches_train_step"] = train["step"]["launches_a_step"]
             entry["at_train"] = train["attention"]["at_train"]
+            # and phase 13's sharded steps, rank 0's local heads
+            entry["launches"] += sharded["launches_total"]
+            entry["launches_sharded"] = sharded["launches_total"]
         for tag in port.sweeps[1:]:
             entry["at_" + bench.inputs[tag].tag] = kernel_times(
                 port, bench, bench.inputs[tag], port_records[tag], hw,
@@ -2994,6 +3212,7 @@ def main() -> int:
                              for n, r in NOT_PORTED],
               "transfer": transfer, "exact_hit": exact, "fleet": fleet,
               "service": service, "serve": serve, "train": train,
+              "sharded": sharded,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
               "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,

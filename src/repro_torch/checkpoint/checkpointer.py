@@ -16,6 +16,12 @@ restored as bf16 where the template's leaf is bf16, bit for bit.
 Writes go to ``step_….tmp`` and are renamed when complete; a background
 thread serializes, so the train loop blocks only on the device-to-host
 copy.  An error of the writer is raised by the next ``wait`` or ``save``.
+
+A sharded state (``DTensor`` leaves, ``train_step.shard_train_state``) is
+gathered to full tensors by every rank and written by rank 0 alone, in
+the same layout; a restore reads the full leaves on every rank and lays
+each out as its template's leaf, so that a checkpoint written under any
+mesh restores under any other.
 """
 from __future__ import annotations
 
@@ -28,9 +34,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.train.train_step import TrainState
+from repro_torch.train.train_step import TrainState, whole
 
 FORMAT = 1
 _VOID2 = np.dtype("V2")
@@ -71,8 +79,8 @@ def stacked(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def _host(t: torch.Tensor) -> torch.Tensor:
     # a copy even on the CPU: the next step updates the state in place
-    # while the writer serializes
-    return t.detach().to("cpu", copy=True)
+    # while the writer serializes (a DTensor gathered whole first)
+    return whole(t.detach()).to("cpu", copy=True)
 
 
 def state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
@@ -134,6 +142,9 @@ def load_arrays(template: TrainState, flat: Dict[str, np.ndarray]
                 raise ValueError(f"{prefix}/{key}{list(index)}: shape "
                                  f"{tuple(src.shape)} in the checkpoint, "
                                  f"{tuple(t.shape)} in the template")
+            if isinstance(t, DTensor):
+                src = distribute_tensor(src.to(t.device), t.device_mesh,
+                                        t.placements)
             t.copy_(src)
 
     fill("params", template.params.named_parameters())
@@ -163,6 +174,8 @@ class Checkpointer:
         """Device-to-host copy now; serialization in the background unless
         ``async_write`` is off."""
         host = state_arrays(state)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return       # rank 0 writes the gathered state
         self.wait()  # one write in flight at a time
         if self.async_write:
             self._thread = threading.Thread(

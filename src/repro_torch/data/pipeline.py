@@ -5,8 +5,9 @@ Every batch is a pure function of (seed, step), so a restored job at step
 k regenerates exactly the batch it would have seen, and there is no
 pipeline state to checkpoint.  ``make_batch`` is numpy only and gives the
 JAX package's batch bit for bit; ``to_device`` places a host batch on a
-device as tensors (the JAX package's ``shard_batch`` places it on a mesh;
-the port's sharded step waits for ROADMAP.md, queue 1, item 9).
+device as tensors, and ``shard_batch`` places it on a mesh: each rank
+copies only its own block of the global batch to its device and wraps it
+as a ``DTensor`` of the global batch's shape.
 
 The token stream mimics Zipf-distributed language tokens with
 document-boundary structure and next-token labels (teacher forcing).
@@ -18,6 +19,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +78,22 @@ def to_device(batch: Dict[str, np.ndarray], device
     """A host batch as tensors on ``device`` (contiguous copies)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], shardings) -> Dict:
+    """Place a host batch onto the mesh with the given layouts
+    (``repro_torch.distributed.sharding.batch_shardings``): each rank's
+    block, on the mesh's device type (the rank's card, or the CPU)."""
+    from repro_torch.distributed.sharding import local_slices
+
+    out = {}
+    for k, v in batch.items():
+        lay = shardings[k]
+        mesh = lay.mesh
+        block = np.ascontiguousarray(v[local_slices(mesh, lay.spec,
+                                                    v.shape)])
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+        out[k] = DTensor.from_local(torch.from_numpy(block).to(dev), mesh,
+                                    lay.placements, run_check=False)
+    return out

@@ -1,3 +1,4 @@
-"""Distributed helpers of the port: the jax-free architecture arithmetic
-of the JAX package's ``repro.distributed.tuning``, and the int8 gradient
-round trip of its ``compression``."""
+"""Distribution of the port: logical-axis sharding rules and layouts
+(``sharding``), the activation-sharding context the models annotate
+(``api``), gradient compression (``compression``) and the train-step
+sharding problem kind (``tuning``)."""

@@ -1,10 +1,11 @@
-"""Fleet tuning CLI: many (kernel × input × hardware) jobs, one pool.
+"""Fleet tuning CLI: many (problem × hardware) jobs, one pool.
 
-Builds ``TuningJob``s from the kernel registry for every requested
-(kernel, input) pair, runs them through a ``FleetTuner`` over the chosen
-worker backend, and persists tuned configs + portable model artifacts into
-a shared ``ConfigStore`` — so re-running with more shapes warm-starts from
-what the fleet already learned.
+Builds ``TuningJob``s for every requested problem (registry kernels and
+inputs, ``--problem kind:name`` specs, or ``--system ARCH``), runs them
+through a ``FleetTuner`` over the chosen worker backend, and persists
+tuned configs + portable model artifacts into a shared ``ConfigStore`` —
+so re-running with more shapes warm-starts from what the fleet already
+learned.
 
 By default every test is MEASURED on the card: one subprocess lane a
 visible CUDA card, each building the kernels at first use and timing them
@@ -25,21 +26,24 @@ happens only when asked::
     PYTHONPATH=src python -m repro_torch.launch.fleet --devices cpu \\
         --hw h100_sxm --kernels matmul --inputs 128 --budget 4
 
-The CLI tunes ``kernel`` problems: ``--problem kernel:conv2d/4096`` works,
-while ``--system`` and the ``sharding`` and ``serve`` kinds are refused:
-the sharding kind is not ported, and the serve kind (ported, priced; the
-tuning service's daemon answers it) joins this CLI with ``--system``.
+Whole-system mode tunes the kernel tiles, the train-step sharding layout
+and the serve geometry of one model-zoo entry through one fleet and one
+store; kernel jobs are measured on the cards (or priced with ``--backend
+virtual``), and the sharding and serve jobs, which name no kernel, are
+always priced on the cost model, in this process::
+
+    PYTHONPATH=src python -m repro_torch.launch.fleet --system qwen2.5-3b \\
+        --hw h100_sxm --store system_store.json
+
+    # or cherry-pick registered problems by kind:name spec
+    PYTHONPATH=src python -m repro_torch.launch.fleet --backend virtual \\
+        --problem sharding:qwen2.5-3b/train_4k --problem serve:p9n9
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-
-NOT_PORTED = ("this CLI tunes kernel problems: the sharding kind is not "
-              "ported yet, and it and the serve kind (which the tuning "
-              "service's daemon answers) join the CLI with --system: they "
-              "wait for ROADMAP.md, queue 1, item 9")
 
 
 def visible_cards():
@@ -67,26 +71,28 @@ def build_pool(backend: str, workers: int, devices):
 
 
 def _problems(args):
-    """(kernel, input key) pairs from --problem or --kernels/--inputs."""
+    """The problems of --system, --problem or --kernels/--inputs, and
+    whether the jobs keep the kernel registry's ``kernel/input@hw``
+    names (--kernels) or take ``kind:name@hw`` (the other two)."""
     from repro_torch.kernels.registry import BENCHMARKS
-    from repro_torch.tuning.problem import parse_problem
+    from repro_torch.tuning.problem import (KernelProblem, parse_problem,
+                                            system_problems)
 
     if args.system is not None:
-        raise SystemExit(f"--system {args.system!r}: {NOT_PORTED}")
+        try:
+            return system_problems(args.system), False
+        except KeyError as exc:
+            raise SystemExit(f"--system: {exc}")
     if args.problem:
         specs = [s.strip() for chunk in args.problem
                  for s in chunk.split(",") if s.strip()]
         out = []
         for spec in specs:
-            kind = spec.partition(":")[0]
-            if kind in ("sharding", "serve"):
-                raise SystemExit(f"--problem {spec!r}: {NOT_PORTED}")
             try:
-                problem = parse_problem(spec)
+                out.append(parse_problem(spec))
             except (KeyError, ValueError) as exc:
                 raise SystemExit(f"--problem {spec!r}: {exc}")
-            out.append((problem.kernel, problem.input_key))
-        return out
+        return out, False
     kernels = [k.strip() for k in args.kernels.split(",") if k.strip()]
     if args.inputs is not None:
         inputs = [i.strip() for i in args.inputs.split(",")]
@@ -99,7 +105,10 @@ def _problems(args):
             bm = BENCHMARKS[k]
             inputs.append(next(key for key, v in bm.inputs.items()
                                if v is bm.default_input))
-    return list(zip(kernels, inputs))
+    try:
+        return [KernelProblem(k, i) for k, i in zip(kernels, inputs)], True
+    except KeyError as exc:
+        raise SystemExit(f"cannot build the jobs: {exc}")
 
 
 def main(argv=None) -> int:
@@ -112,10 +121,14 @@ def main(argv=None) -> int:
     ap.add_argument("--problem", action="append", default=None,
                     help="tune registered problems 'kind:name' instead of "
                     "--kernels (repeatable / comma-separated), e.g. "
-                    "kernel:matmul/2048; only the kernel kind is ported")
+                    "kernel:matmul/2048, sharding:qwen2.5-3b/train_4k, "
+                    "serve:p9n9")
     ap.add_argument("--system", default=None,
-                    help="whole-system mode of the JAX package: refused, "
-                    "its problem kinds are not ported yet")
+                    help="whole-system mode: one invocation tunes kernel "
+                    "tiles (measured on the cards unless --backend "
+                    "virtual) + train-step sharding + serve geometry "
+                    "(priced) for this model-zoo entry through one fleet "
+                    "and one store (overrides --kernels/--problem)")
     ap.add_argument("--hw", default=None,
                     help="comma-separated hardware names (naming drift ok: "
                     "H100-SXM == h100_sxm); default: the spec detected for "
@@ -176,10 +189,11 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    from repro_torch.fleet import FleetTuner, job_from_registry
+    from repro_torch.fleet import FleetTuner, job_from_problem
+    from repro_torch.fleet.job import device_spec
     from repro_torch.tuning import ConfigStore
 
-    pairs = _problems(args)
+    problems, registry_names = _problems(args)
     measured = args.backend != "virtual"
     devices = None
     if measured:
@@ -196,13 +210,24 @@ def main(argv=None) -> int:
     hws = ([h.strip() for h in args.hw.split(",") if h.strip()]
            if args.hw is not None else [None if measured else "h100_sxm"])
     jobs = []
+    n = 0
     try:
-        for n, ((kernel, inp), hw) in enumerate(
-                (p, h) for p in pairs for h in hws):
-            jobs.append(job_from_registry(
-                kernel, inp, hw, budget=args.budget, seed=args.seed,
-                searcher=args.searcher,
-                device=devices[n % len(devices)] if measured else None))
+        for problem, hw in ((p, h) for p in problems for h in hws):
+            device = None
+            if problem.kernel is None:
+                # a sharding or serve problem names no kernel: priced, on
+                # the given spec or the first lane's card's
+                if hw is None:
+                    hw = device_spec(devices[0], None)
+            elif measured:
+                device = devices[n % len(devices)]
+                n += 1
+            job = job_from_problem(
+                problem, hw, budget=args.budget, seed=args.seed,
+                searcher=args.searcher, device=device)
+            if registry_names:
+                job.name = f"{problem.name}@{job.hardware_key}"
+            jobs.append(job)
     except (KeyError, ValueError, RuntimeError) as exc:
         raise SystemExit(f"cannot build the jobs: {exc}")
     workers = args.workers if args.workers is not None else (
@@ -287,6 +312,7 @@ def main(argv=None) -> int:
                     "searcher": r.searcher, "warm_started": r.warm_started,
                     "warm_from": r.warm_from,
                     "trials": r.trials, "best_runtime_s": r.best_runtime,
+                    "elapsed_s": r.elapsed, "busy_s": r.busy,
                     "best_config": r.best_config,
                     "failures": r.failures, "known_bad": r.known_bad,
                     "parked": r.parked, "cancelled": r.cancelled,

@@ -35,11 +35,13 @@ Cache layout (MLA):   {"c_kv": (B, S_max, R), "k_rope": (B, S_max, Dr)}
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.api import call_local, split_heads
 from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models.common import ParamDef, Params, apply_rope, dense
 
@@ -128,6 +130,34 @@ def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _heads_local(attend: Callable, rep: int, q: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, offsets, **kw):
+    """``attend`` on this rank's query heads, each paired with the kv head
+    its global index reads (query head j reads kv head j // ``rep``):
+    where the kv heads are not split as the query heads are (replicated
+    while the query heads are split), they are gathered head by head."""
+    h0, kv0 = offsets[0][2], offsets[1][2]
+    h = q.shape[2]
+    if h0 != kv0 * rep or h != k.shape[2] * rep:
+        idx = torch.arange(h0, h0 + h, device=k.device) // rep - kv0
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return attend(q, k, v, **kw)
+
+
+def attend_heads(attend: Callable, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, **kw) -> torch.Tensor:
+    """``attend(q, k, v, **kw)`` of q (B, S, H, D) over k, v (B, T, Hkv,
+    D): on one device as it is; under a mesh on each rank's local batch
+    and query heads (``call_local``), so that the kernel sees
+    (B/d, H/m, S, D).  The output is laid out as q."""
+    rep = q.shape[2] // k.shape[2]
+    return call_local(
+        functools.partial(_heads_local, attend, rep), (q, k, v),
+        (("batch", None, "heads", None), ("batch", None, "kv", None),
+         ("batch", None, "kv", None)),
+        ("batch", None, "heads", None), **kw)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       chunk: int = KV_CHUNK) -> torch.Tensor:
     """Non-causal attention of q (B, S, H, D) over k (B, T, Hkv, D) and
@@ -206,16 +236,17 @@ def gqa_apply(
     recomputes (``KernelAttention``)."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, hk, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hk, hd)
+    q = split_heads(dense(x, p["wq"], p.get("bq")), h, hd, "heads")
+    k = split_heads(dense(x, p["wk"], p.get("bk")), hk, hd, "kv")
+    v = split_heads(dense(x, p["wv"], p.get("bv")), hk, hd, "kv")
 
     if cache is None:
         pos = positions if positions is not None \
             else torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        out = kernel_attention(q, k, v, causal=cfg.causal, chunk=kv_chunk)
+        out = attend_heads(kernel_attention, q, k, v, causal=cfg.causal,
+                           chunk=kv_chunk)
         new_cache = {"k": k, "v": v}
     else:
         # single-token decode over the stored prefix plus the current token
@@ -294,7 +325,7 @@ def mla_apply(
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
     dv = cfg.v_head_dim or hd
 
-    q = dense(x, p["wq"]).reshape(b, s, h, hd + dr)
+    q = split_heads(dense(x, p["wq"]), h, hd + dr, "heads")
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     c_kv = dense(x, p["w_dkv"])                     # (B, S, R): the cache
     k_rope = dense(x, p["w_kr"])                    # (B, S, Dr) shared
@@ -304,12 +335,13 @@ def mla_apply(
             else torch.arange(s, device=x.device)[None, :]
         q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
         k_rope_r = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)
-        k_nope = dense(c_kv, p["w_uk"]).reshape(b, s, h, hd)
-        v = dense(c_kv, p["w_uv"]).reshape(b, s, h, dv)
+        k_nope = split_heads(dense(c_kv, p["w_uk"]), h, hd, "heads")
+        v = split_heads(dense(c_kv, p["w_uv"]), h, dv, "heads")
         # concatenated effective head dims: [nope | rope]
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope_r.expand(b, s, h, dr)], dim=-1)
-        out = plain_causal_attention(q_full, k_full, v, chunk=kv_chunk)
+        out = attend_heads(plain_causal_attention, q_full, k_full, v,
+                           chunk=kv_chunk)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope_r[:, :, 0, :]}
     else:
         pos = cache["pos"]

@@ -24,8 +24,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.distributed.api import shard_act
 
 Params = Dict[str, Any]
 
@@ -45,6 +48,11 @@ def _tree_map_defs(fn: Callable, defs):
     if isinstance(defs, ParamDef):
         return fn(defs)
     return {k: _tree_map_defs(fn, v) for k, v in defs.items()}
+
+
+def logical_specs(defs):
+    """ParamDef tree -> tree of logical-axis tuples (mirrors init_params)."""
+    return _tree_map_defs(lambda d: d.spec, defs)
 
 
 def stack_defs(defs, n: int):
@@ -125,6 +133,14 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b
     return y
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` (V, D) at ``tokens``.  Under a mesh the table's
+    embed dim is gathered over its FSDP axis first, as FSDP gathers any
+    weight before use, and the vocab stays split: DTensor's lookup is
+    wrong for a table split on both dims (ROADMAP.md, queue 3)."""
+    return shard_act(table, ("vocab", None))[tokens.long()]
 
 
 # --- rotary position embeddings ----------------------------------------------
@@ -239,8 +255,20 @@ def _chunk_ce(hidden: torch.Tensor, w_out: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     logits = torch.matmul(hidden, w_out).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return lse - gold
+    return lse - _gold(logits, labels)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logit at its label.  Where the vocab dim is split
+    over a mesh axis, DTensor's ``gather`` along it is wrong (ROADMAP.md,
+    queue 3); the masked sum over the vocab picks the same value, exactly
+    (one term and zeros), each rank over its own slice."""
+    if not (isinstance(logits, DTensor) and any(
+            isinstance(p, Shard) and p.dim == logits.dim() - 1
+            for p in logits.placements)):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ids = torch.arange(logits.shape[-1], device=labels.device)
+    return torch.where(ids == labels[..., None].long(), logits, 0.0).sum(-1)
 
 
 def cross_entropy_from_hidden(

@@ -27,12 +27,15 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.attention import (chunked_attention, gqa_apply,
-                                          gqa_defs, gqa_init_cache)
+from repro_torch.distributed.api import shard_act, split_heads
+from repro_torch.models.attention import (attend_heads, chunked_attention,
+                                          gqa_apply, gqa_defs,
+                                          gqa_init_cache)
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
-                                       mlp_apply, mlp_defs, remat_apply,
-                                       rms_norm, stack_caches, stack_defs)
+                                       embed_lookup, mlp_apply, mlp_defs,
+                                       remat_apply, rms_norm, stack_caches,
+                                       stack_defs)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import attn_config, update_stacked_cache
 
@@ -87,10 +90,11 @@ def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor,
     def layer(x, lp):
         h, _ = gqa_apply(lp["attn"], acfg, rms_norm(x, lp["ln1"]))
         x = x + h
-        return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]),
-                             cfg.activation)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"]), cfg.activation)
+        return shard_act(x, ("batch", None, None))
 
-    x = dense(frames.to(dt), params["frontend_proj"])
+    x = shard_act(dense(frames.to(dt), params["frontend_proj"]),
+                  ("batch", None, None))
     for lp in params["enc"]:
         x = remat_apply(functools.partial(layer, lp=lp), remat, x)
     return rms_norm(x, params["enc_ln"])
@@ -100,17 +104,16 @@ def _cross_attend(cfg: ArchConfig, xp: Params, x: torch.Tensor,
                   enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.eff_head_dim
-    q = dense(x, xp["wq"]).reshape(b, s, h, hd)
+    q = split_heads(dense(x, xp["wq"]), h, hd, "heads")
     k, v = enc_kv
-    out = chunked_attention(q, k, v)
+    out = attend_heads(chunked_attention, q, k, v)
     return dense(out.reshape(b, s, h * hd).to(x.dtype), xp["wo"])
 
 
 def _enc_kv(cfg: ArchConfig, xp: Params, enc_out: torch.Tensor):
-    b, t, _ = enc_out.shape
     hk, hd = cfg.n_kv_heads, cfg.eff_head_dim
-    k = dense(enc_out, xp["wk"]).reshape(b, t, hk, hd)
-    v = dense(enc_out, xp["wv"]).reshape(b, t, hk, hd)
+    k = split_heads(dense(enc_out, xp["wk"]), hk, hd, "kv")
+    v = split_heads(dense(enc_out, xp["wv"]), hk, hd, "kv")
     return k, v
 
 
@@ -134,9 +137,11 @@ def encdec_loss(cfg: ArchConfig, params: Params, batch: Dict,
     enc_out = encode(cfg, params, batch["frames"], policy)
 
     def layer(x, lp):
-        return _dec_block(cfg, lp, x, _enc_kv(cfg, lp["xattn"], enc_out))[0]
+        x = _dec_block(cfg, lp, x, _enc_kv(cfg, lp["xattn"], enc_out))[0]
+        return shard_act(x, ("batch", None, None))
 
-    x = params["embed"][batch["tokens"].long()]
+    x = shard_act(embed_lookup(params["embed"], batch["tokens"]),
+                  ("batch", None, None))
     for lp in params["dec"]:
         x = remat_apply(functools.partial(layer, lp=lp), policy, x)
     hidden = rms_norm(x, params["final_ln"])

@@ -27,11 +27,13 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.api import shard_act
 from repro_torch.models.attention import gqa_apply, gqa_defs, gqa_init_cache
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
-                                       mlp_apply, mlp_defs, remat_apply,
-                                       rms_norm, stack_caches, stack_defs)
+                                       embed_lookup, mlp_apply, mlp_defs,
+                                       remat_apply, rms_norm, stack_caches,
+                                       stack_defs)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.ssm import (Mamba2Config, mamba2_apply, mamba2_defs,
                                     mamba2_init_cache)
@@ -50,7 +52,7 @@ def _write_layer(stacked: Dict, index, new: Dict) -> None:
 
 
 def _embed(params: Params, batch: Dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()]
+    return embed_lookup(params["embed"], batch["tokens"])
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -114,9 +116,10 @@ def zamba2_loss(cfg: ArchConfig, params: Params, batch: Dict,
     def superblock(x, sb):
         for lp in sb:
             x = remat_apply(functools.partial(mamba_layer, lp=lp), policy, x)
-        return _zamba_shared_apply(cfg, params["shared"], x)[0]
+        return shard_act(_zamba_shared_apply(cfg, params["shared"], x)[0],
+                         ("batch", None, None))
 
-    x = _embed(params, batch)
+    x = shard_act(_embed(params, batch), ("batch", None, None))
     for sb in params["supers"]:
         x = remat_apply(functools.partial(superblock, sb=sb), policy, x)
     hidden = rms_norm(x, params["final_ln"])
@@ -226,9 +229,9 @@ def xlstm_loss(cfg: ArchConfig, params: Params, batch: Dict,
         h, _ = mlstm_apply(lp["mlstm"], xcfg, rms_norm(x, lp["ln_m"]))
         x = x + h
         h, _ = slstm_apply(lp["slstm"], xcfg, rms_norm(x, lp["ln_s"]))
-        return x + h
+        return shard_act(x + h, ("batch", None, None))
 
-    x = _embed(params, batch)
+    x = shard_act(_embed(params, batch), ("batch", None, None))
     for lp in params["pairs"]:
         x = remat_apply(functools.partial(pair, lp=lp), policy, x)
     hidden = rms_norm(x, params["final_ln"])

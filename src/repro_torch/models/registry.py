@@ -8,9 +8,12 @@ config's fields as the JAX registry dispatches them.  ``Model.init`` draws
 the parameters on a device (the card unless the caller names the CPU) from
 an explicit ``torch.Generator`` and returns them as a ``ParamTree``
 module; ``prefill``, ``decode`` and ``loss`` take that module where the
-JAX functions take their nested dicts.  The dry-run specs (``abstract``,
-``specs``, ``cache_specs``, ``input_specs``) wait for ROADMAP.md, queue 1,
-item 9.
+JAX functions take their nested dicts.  ``specs`` gives the ParamDefs'
+logical axes in the JAX layout (stacked leaves with their ``layers``
+axes), ``named_specs`` the same for each parameter of the module (one a
+layer); the sharded train step lays the parameters out by them.  The
+dry-run's abstract trees (``abstract``, ``cache_specs``, ``input_specs``)
+wait for ROADMAP.md, queue 1, item 9c.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, transformer
-from repro_torch.models.common import ParamTree, init_leaf
+from repro_torch.models.common import (ParamDef, ParamTree, init_leaf,
+                                       logical_specs)
 from repro_torch.models.config import ArchConfig
 
 # the subtrees stacked along a layers axis, split into one module a layer
@@ -68,6 +72,26 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(0)
         dt = model_dtype(self.cfg)
         return self.module(lambda path, d: init_leaf(d, generator, dt, dev))
+
+    def specs(self):
+        """The logical-axis tree of the parameters, the JAX layout."""
+        return logical_specs(self.defs)
+
+    def named_specs(self):
+        """Module parameter name -> its logical axes (a stacked leaf's
+        layers axes dropped: the module holds one tensor a layer)."""
+        meta = self.module(
+            lambda path, d: torch.empty(d.shape, device="meta"))
+        out = {}
+        for name, _ in meta.named_parameters():
+            parts = name.split(".")
+            keys = [k for k in parts if not k.isdigit()]
+            d = self.defs
+            for k in keys:
+                d = d[k]
+            assert isinstance(d, ParamDef), name
+            out[name] = d.spec[len(parts) - len(keys):]
+        return out
 
     # --- compute --------------------------------------------------------------
     def loss(self, params, batch, **opts) -> torch.Tensor:

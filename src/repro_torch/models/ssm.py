@@ -22,11 +22,13 @@ Shapes: d_inner = expand * d_model, H = d_inner / head_dim heads, state N.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import call_local, local_op
 from repro_torch.models.common import ParamDef, Params, dense, rms_norm
 
 
@@ -96,7 +98,9 @@ def _causal_conv(p: Params, cfg: Mamba2Config,
     the W shifted products summed in order, as the JAX package sums them."""
     w = p["conv_w"]                      # (W, conv_dim)
     s = xbc.shape[1]
-    xp = F.pad(xbc, (0, 0, cfg.conv_width - 1, 0))
+    # the sequence dim is never split: each rank pads its own block
+    xp = local_op(functools.partial(F.pad, pad=(0, 0, cfg.conv_width - 1,
+                                                0)), xbc)
     out = 0
     for i in range(cfg.conv_width):
         out = out + xp[:, i:i + s, :] * w[i]
@@ -137,6 +141,31 @@ def mamba2_apply(
 
     a, dt = _decay_rates(p, dt)
     dt = dt.reshape(b, nc, L, h)
+    # the chunked scan runs on each rank's own batch, every head
+    # (``call_local``): its ops (cumsum's backward among them) then need
+    # no DTensor rule
+    y = call_local(_chunked_scan, (xs, bm, cm, dt, a),
+                   (("batch", None, None, None, None),
+                    ("batch", None, None, None), ("batch", None, None, None),
+                    ("batch", None, None, None), (None,)),
+                   ("batch", None, None))
+    y = y + (xbc[..., :di].float()
+             * torch.repeat_interleave(p["d_skip"], pd)[None, None, :])
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["norm_g"])
+    out = dense(y, p["w_out"])
+    if not with_state:
+        return out, None
+    return out, _state_from_prefix(cfg, xbc_raw, xbc, dt.reshape(b, s, h), a)
+
+
+def _chunked_scan(xs: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                  dt: torch.Tensor, a: torch.Tensor, offsets=None
+                  ) -> torch.Tensor:
+    """The SSD of xs (B, C#, L, H, P) with B_t, C_t (B, C#, L, N), the
+    decay rates dt (B, C#, L, H) and A (H,): the intra-chunk products plus
+    the chunk states carried across; fp32 (B, C# * L, H * P)."""
+    b, nc, L, h, pd = xs.shape
+    n = bm.shape[-1]
     cum = torch.cumsum(dt * a, dim=2)                     # (B, C#, L, H)
 
     # --- intra-chunk: decay-masked attention-like product -----------------
@@ -144,7 +173,7 @@ def mamba2_apply(
     cb = torch.einsum("bctn,bcsn->bcts", cm, bm)
     cum_h = cum.permute(0, 1, 3, 2)                       # (B, C#, H, L)
     decay = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
-    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones((L, L), dtype=torch.bool, device=xs.device).tril()
     scores = torch.where(tri, cb[:, :, None] * decay, 0.0) \
         * dt.permute(0, 1, 3, 2)[..., None, :]            # weight dt_s
     del decay
@@ -157,7 +186,7 @@ def mamba2_apply(
     h_end = torch.einsum("bcshp,bcsn->bchpn", w_end[..., None] * xs, bm)
 
     decay_end = torch.exp(cum[:, :, -1, :])               # (B, C#, H)
-    hprev = torch.zeros((b, h, pd, n), dtype=torch.float32, device=x.device)
+    hprev = torch.zeros((b, h, pd, n), dtype=torch.float32, device=xs.device)
     h_in = []
     for c in range(nc):
         h_in.append(hprev)
@@ -168,14 +197,8 @@ def mamba2_apply(
     y_inter = torch.einsum("bctn,bchpn->bcthp", cm, h_in) \
         * torch.exp(cum)[..., None]
 
-    y = (y_intra.permute(0, 1, 3, 2, 4) + y_inter).reshape(b, s, di)
-    y = y + (xbc[..., :di].float()
-             * torch.repeat_interleave(p["d_skip"], pd)[None, None, :])
-    y = rms_norm(y.to(x.dtype) * F.silu(z), p["norm_g"])
-    out = dense(y, p["w_out"])
-    if not with_state:
-        return out, None
-    return out, _state_from_prefix(cfg, xbc_raw, xbc, dt.reshape(b, s, h), a)
+    return (y_intra.permute(0, 1, 3, 2, 4) + y_inter).reshape(
+        b, nc * L, h * pd)
 
 
 def _state_from_prefix(cfg: Mamba2Config, xbc_raw: torch.Tensor,

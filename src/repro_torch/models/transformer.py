@@ -18,11 +18,13 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.api import shard_act
 from repro_torch.models.attention import (AttnConfig, gqa_apply, gqa_defs,
                                           gqa_init_cache, mla_apply,
                                           mla_defs, mla_init_cache)
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
+                                       embed_lookup,
                                        mlp_apply, mlp_defs, remat_apply,
                                        rms_norm, stack_defs)
 from repro_torch.models.config import ArchConfig
@@ -108,23 +110,23 @@ def _attn(cfg: ArchConfig, lp: Params, h: torch.Tensor, **kw):
 def _block_apply(cfg: ArchConfig, lp: Params, x: torch.Tensor,
                  kv_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     h, _ = _attn(cfg, lp, rms_norm(x, lp["ln1"]), kv_chunk=kv_chunk)
-    x = x + h
+    x = shard_act(x + h, ("batch", None, None))
     h = rms_norm(x, lp["ln2"])
     if cfg.n_experts:
         h, aux = moe_apply(lp["moe"], moe_config(cfg), h)
     else:
         h = mlp_apply(lp["mlp"], h, cfg.activation)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux
+    return shard_act(x + h, ("batch", None, None)), aux
 
 
 def embed_inputs(cfg: ArchConfig, params: Params,
                  batch: Dict) -> torch.Tensor:
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         vis = dense(batch["patch_embeds"].to(x.dtype), params["vis_proj"])
         x = torch.cat([vis, x], dim=1)
-    return x
+    return shard_act(x, ("batch", None, None))
 
 
 def forward_hidden(cfg: ArchConfig, params: Params, batch: Dict,

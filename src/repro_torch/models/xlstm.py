@@ -23,6 +23,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import call_local, local_op
 from repro_torch.models.common import ParamDef, Params, dense, rms_norm
 from repro_torch.models.ssm import chunk_length
 
@@ -85,12 +86,34 @@ def mlstm_apply(
     v = dense(xb, p["wv"]).reshape(b, s, h, hd)
     gates = dense(xb, p["w_if"]) + p["b_if"]
     logi = torch.clamp(gates[..., :h].float(), -_CLIP, _CLIP)
-    logf = F.logsigmoid(gates[..., h:].float())           # <= 0
+    logf = local_op(F.logsigmoid, gates[..., h:].float())  # <= 0
 
     if cache is not None:
         return _mlstm_decode(p, cfg, x, q, k, v, logi, logf, gate, cache)
 
     L = chunk_length(s, cfg.chunk, "src/repro/models/xlstm.py:83")
+    # the chunked form runs on each rank's own batch, every head
+    # (``call_local``): its ops (cumsum's backward among them) then need
+    # no DTensor rule
+    y = call_local(_mlstm_chunks, (q, k, v, logi, logf),
+                   (("batch", None, None, None),) * 3
+                   + (("batch", None, None),) * 2,
+                   ("batch", None, None), chunk=L).to(x.dtype)
+    y = rms_norm(y, p["norm_g"]) * F.silu(gate)
+    out = dense(y, p["w_out"])
+    if not with_state:
+        return out, None
+    return out, _mlstm_state_from_prefix(k_raw, v, logi, logf)
+
+
+def _mlstm_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logi: torch.Tensor, logf: torch.Tensor, chunk: int,
+                  offsets=None) -> torch.Tensor:
+    """mLSTM's chunked form of q, k, v (B, S, H, P) and the log input and
+    forget gates (B, S, H), ``chunk`` positions a chunk: fp32
+    (B, S, H * P)."""
+    b, s, h, hd = q.shape
+    L = chunk
     nc = s // L
     qc = q.reshape(b, nc, L, h, hd).float()
     kc = k.reshape(b, nc, L, h, hd).float()
@@ -103,7 +126,7 @@ def mlstm_apply(
     cum_h, li_h = cum.permute(0, 1, 3, 2), li.permute(0, 1, 3, 2)
     ldecay = torch.clamp(cum_h[..., :, None] - cum_h[..., None, :]
                          + li_h[..., None, :], -_CLIP, _CLIP)
-    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     dmat = torch.where(tri, torch.exp(ldecay), 0.0)
     qh, kh, vh = (t.permute(0, 1, 3, 2, 4) for t in (qc, kc, vc))
     sd = torch.matmul(qh, kh.transpose(-1, -2)) * dmat    # (B,C#,H,t,s)
@@ -120,8 +143,8 @@ def mlstm_apply(
 
     dec_end = torch.exp(cum[:, :, -1, :])                 # (B, C#, H)
     c_prev = torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                         device=x.device)
-    n_prev = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
+                         device=q.device)
+    n_prev = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
     c_in, n_in = [], []
     for c in range(nc):
         c_in.append(c_prev)
@@ -136,12 +159,7 @@ def mlstm_apply(
         * scale_t[..., None]
     den = den_intra + torch.einsum("bchte,bche->bcht", qh, n_in) * scale_t
     y = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
-    y = y.permute(0, 1, 3, 2, 4).reshape(b, s, du).to(x.dtype)
-    y = rms_norm(y, p["norm_g"]) * F.silu(gate)
-    out = dense(y, p["w_out"])
-    if not with_state:
-        return out, None
-    return out, _mlstm_state_from_prefix(k_raw, v, logi, logf)
+    return y.permute(0, 1, 3, 2, 4).reshape(b, s, h * hd)
 
 
 def _mlstm_state_from_prefix(k_raw: torch.Tensor, v: torch.Tensor,
@@ -217,7 +235,7 @@ def _slstm_step(w_r: torch.Tensor, bias: torch.Tensor, cfg: XLSTMConfig,
     pre = xt + rec + bias
     z, i_pre, f_pre, o = torch.chunk(pre, 4, dim=-1)
     logi = torch.clamp(i_pre, -_CLIP, _CLIP)
-    logf = F.logsigmoid(f_pre)
+    logf = local_op(F.logsigmoid, f_pre)
     m_new = torch.maximum(logf + m_prev, logi)
     i_s = torch.exp(logi - m_new)
     f_s = torch.exp(logf + m_prev - m_new)
@@ -232,13 +250,25 @@ def slstm_scan(p: Params, cfg: XLSTMConfig, x: torch.Tensor,
     """The sLSTM over x (B, S, D) token by token from ``carry``: returns
     the normed outputs in x's dtype and the carry after the last token."""
     xp = dense(x, p["w_x"])                               # (B, S, 4D)
-    w_r = p["w_r"].float()
-    hs = []
-    for t in range(x.shape[1]):
-        carry, h = _slstm_step(w_r, p["b"], cfg, carry, xp[:, t])
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return rms_norm(y, p["norm_g"]), carry
+    # the token loop runs on each rank's own batch (``call_local``)
+    hs, *carry = call_local(
+        _slstm_loop, (xp, p["w_r"].float(), p["b"]) + tuple(carry),
+        (("batch", None, None), (None, None, None), (None,))
+        + (("batch", None),) * 4,
+        (("batch", None, None),) + (("batch", None),) * 4, cfg=cfg)
+    return rms_norm(hs.to(x.dtype), p["norm_g"]), tuple(carry)
+
+
+def _slstm_loop(xp: torch.Tensor, w_r: torch.Tensor, bias: torch.Tensor,
+                h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                m: torch.Tensor, cfg: XLSTMConfig, offsets=None):
+    """The sLSTM steps over xp (B, S, 4D) from the carry (h, c, n, m):
+    the outputs (B, S, D) fp32 and the carry after the last token."""
+    carry, hs = (h, c, n, m), []
+    for t in range(xp.shape[1]):
+        carry, ht = _slstm_step(w_r, bias, cfg, carry, xp[:, t])
+        hs.append(ht)
+    return (torch.stack(hs, dim=1),) + carry
 
 
 def _slstm_zero(batch: int, d: int, device):

@@ -8,6 +8,11 @@ moments in fp32, the update computed in fp32 and cast to the parameter's
 dtype, then added in that dtype.  The moments and the parameters are
 updated in place, under ``torch.no_grad()``; the step count stays an
 int32 tensor, so that a schedule reads it as the JAX one does.
+
+Under the sharded step the leaves are ``DTensor`` tensors (the moments laid
+out as their parameters): the per-leaf update runs on each rank's local
+shards, element for element as on one device, and the global norm of
+``clip_by_global_norm`` covers the full tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import math
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Tree = Dict[str, torch.Tensor]
 
@@ -37,8 +43,7 @@ class AdamW:
     @staticmethod
     def init(params: Tree) -> AdamWState:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            return {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()}
 
         device = next(iter(params.values())).device
@@ -49,8 +54,9 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Tree, state: AdamWState, params: Tree
                ) -> Tuple[Tree, AdamWState]:
-        """The updates to add to ``params``; ``state``'s moments are
-        advanced in place and returned with the count advanced."""
+        """The updates to add to ``params`` (each rank's local shard of a
+        ``DTensor`` leaf); ``state``'s moments are advanced in place and
+        returned with the count advanced."""
         count = state.count + 1
         b1, b2 = self.b1, self.b2
         lr = self.lr(count)
@@ -58,20 +64,27 @@ class AdamW:
         c2 = 1 - b2 ** count.float()
         updates = {}
         for k, p in params.items():
-            g = grads[k].float()
-            m = state.m[k].mul_(b1).add_(g * (1 - b1))
-            v = state.v[k].mul_(b2).add_(torch.square(g) * (1 - b2))
+            p = local(p)
+            g = local(grads[k]).float()
+            m = local(state.m[k]).mul_(b1).add_(g * (1 - b1))
+            v = local(state.v[k]).mul_(b2).add_(torch.square(g) * (1 - b2))
             step = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             step = step + self.weight_decay * p.float()
             updates[k] = (-lr * step).to(p.dtype)
         return updates, AdamWState(m=state.m, v=state.v, count=count)
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (a view), a tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 @torch.no_grad()
 def apply_updates(params: Tree, updates: Tree) -> Tree:
-    """``params`` plus ``updates``, each added in place in its dtype."""
+    """``params`` plus ``updates``, each added in place in its dtype (to
+    this rank's shard of a ``DTensor`` leaf)."""
     for k, p in params.items():
-        p.add_(updates[k])
+        local(p).add_(local(updates[k]))
     return params
 
 

@@ -56,11 +56,12 @@ reports, so the daemon process itself never touches CUDA.  The CPU
 (``"cpu"``, the kernels' plain versions, for tests) stands in for a
 ``CPU_HARDWARE`` card.  A pool without devices (``VirtualWorkerPool``, or
 subprocess lanes without devices) PRICES each test on the cost model,
-exactly as the JAX daemon does.  ``problem`` submits of the kinds the
-port's problem registry lacks (``sharding``) are refused.
+exactly as the JAX daemon does.
 
-Serve requests are priced, by a measuring daemon too.  A serve-kind
-submit (and a ``serve:`` problem) becomes a job of the
+Serve and sharding requests are priced, by a measuring daemon too.  A
+``sharding:`` problem becomes a job of the ``ShardingProblem`` the JAX
+daemon builds, its tests priced on the cost model for the named hardware.
+A serve-kind submit (and a ``serve:`` problem) becomes a job of the
 ``ServeProblem`` the JAX daemon builds: its tests price the portable
 serving workload on the cost model for the named hardware (a registered
 spec, or the spec the client ships), as the JAX daemon prices them, and no
@@ -102,11 +103,6 @@ from repro_torch.service.journal import (EV_CANCELLED, EV_CHARGE,
                                          RequestJournal, replay)
 from repro_torch.service.tenants import AdmissionError, TenantManager
 from repro_torch.tuning.store import split_key, store_key
-
-# problem kinds of the JAX package that the port does not have yet
-NOT_PORTED_KINDS = ("sharding",)
-NOT_PORTED = ("the sharding problem kind is not ported yet (ROADMAP.md, "
-              "queue 1, item 9)")
 
 # the card a "cpu" device of a measuring pool stands in for (tests measure
 # the kernels' plain versions there)
@@ -770,13 +766,10 @@ class TuningDaemon:
             try:
                 problem = parse_problem(req["problem"], **req["params"])
             except (KeyError, ValueError, TypeError) as exc:
-                why = str(exc)
-                if req["problem"].partition(":")[0] in NOT_PORTED_KINDS:
-                    why += f" ({NOT_PORTED})"
-                raise P.ProtocolError(why, code=P.E_UNKNOWN_PROBLEM) \
+                raise P.ProtocolError(str(exc), code=P.E_UNKNOWN_PROBLEM) \
                     from None
-            # a problem that names no kernel (serve) is priced, never
-            # placed on a card
+            # a problem that names no kernel (sharding, serve) is priced,
+            # never placed on a card
             hardware, device = self._place(req["hardware"]) \
                 if problem.kernel is not None else (req["hardware"], None)
             try:

@@ -40,9 +40,8 @@ one level) so non-Python tenants can speak it with any JSON library.
 
 This is the JAX package's protocol byte for byte, its wire name
 (``PROTOCOL``) included, so a client of either package talks to a daemon
-of either.  The port's daemon prices a ``kind="serve"`` submit as the
-JAX daemon does, and answers a ``problem`` submit of a kind it lacks
-(``sharding``) with an error until that kind is ported.
+of either.  The port's daemon prices ``kind="serve"`` submits and
+``sharding:`` / ``serve:`` problem submits as the JAX daemon does.
 """
 from __future__ import annotations
 

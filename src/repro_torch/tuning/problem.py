@@ -6,17 +6,20 @@ workload model ``g : TP × I → PC_ops`` whose counters feed the TP→PC
 model, and (optionally) a measurement substrate for the hardware of
 interest.  This module lifts that contract out of the kernel registry so
 the store and the searchers tune anything that speaks it.  It is the JAX
-package's module carried over, with two problem kinds so far:
+package's module carried over, with its three problem kinds:
 
 * ``kernel`` — a thin adapter over ``kernels/registry.py``: one of the
   port's hand-written Hopper kernels on one named registry input;
+* ``sharding`` — ``repro_torch.distributed.tuning.ShardingProblem``: the
+  train-step layout (mesh × FSDP × SEQ × GA) of one model-zoo entry,
+  priced on the cost model;
 * ``serve`` — ``repro_torch.serve.autotune.ServeProblem``: the serving
   wave geometry (BATCH × MAX_SEQ) of one shape bucket, priced on the
   cost model.
 
-The ``sharding`` kind (train-step layouts) waits for a later slice of the
-port (ROADMAP.md, queue 1, item 9).  The fleet (``repro_torch.fleet``)
-schedules problems of the kinds there are.
+``system_problems`` lists all three for one model-zoo entry, the fleet
+CLI's ``--system`` mode.  The fleet (``repro_torch.fleet``) schedules
+problems of every kind.
 
 A problem also names its identity in the persistent ``ConfigStore``:
 ``kind`` is the key namespace (``kind|space|bucket|hardware``) and
@@ -203,8 +206,19 @@ def _make_kernel(name: str, **params: Any) -> KernelProblem:
 
 
 # =============================================================================
-# kind = "serve" — lazy factory (the serving modules import on demand)
+# kind = "sharding" / "serve" — lazy factories (heavy imports on demand)
 # =============================================================================
+def _sharding_names() -> List[str]:
+    from repro_torch.configs import ARCHS
+    return [f"{a}/train_4k" for a in sorted(ARCHS)]
+
+
+@register_problem_kind("sharding", lister=_sharding_names)
+def _make_sharding(name: str, **params: Any) -> TuningProblem:
+    from repro_torch.distributed.tuning import ShardingProblem
+    return ShardingProblem.from_name(name, **params)
+
+
 def _serve_names() -> List[str]:
     return ["p9n9", "p4n4", "p9n0"]
 
@@ -213,3 +227,26 @@ def _serve_names() -> List[str]:
 def _make_serve(name: str, **params: Any) -> TuningProblem:
     from repro_torch.serve.autotune import ServeProblem
     return ServeProblem.from_name(name, **params)
+
+
+# =============================================================================
+# Whole-system convenience: every problem kind for one model-zoo entry
+# =============================================================================
+def system_problems(arch: str, shape: str = "train_4k",
+                    n_devices: int = 64,
+                    kernels: Optional[List[str]] = None
+                    ) -> List[TuningProblem]:
+    """Kernel tiles + train-step sharding + serve geometry for one
+    model-zoo entry — the one-invocation ``launch/fleet.py --system``
+    mode tunes exactly this list through one fleet and one store."""
+    from repro_torch.distributed.tuning import ShardingProblem
+    from repro_torch.kernels.registry import BENCHMARKS
+    from repro_torch.serve.autotune import ServeProblem
+
+    problems: List[TuningProblem] = []
+    for k in (kernels if kernels is not None else sorted(BENCHMARKS)):
+        problems.append(KernelProblem(k))
+    problems.append(ShardingProblem.from_name(f"{arch}/{shape}",
+                                              n_devices=n_devices))
+    problems.append(ServeProblem.from_name("p9n9", arch=arch))
+    return problems

@@ -58,9 +58,7 @@ and a file of another version is refused.  A caller that names no kind
 gets the one ``legacy_kind`` infers from the space name.
 
 This is the JAX package's store carried over line for line, under its own
-format name: its model artifacts name the Hopper counters.  The serve and
-sharding problem kinds that ``legacy_kind`` names are not ported yet; their
-keys load and merge all the same.
+format name: its model artifacts name the Hopper counters.
 
 Writes are atomic (tempfile + ``os.replace``) and auto-saved when the store
 is bound to a path; ``ConfigStore()`` with no path is a process-local cache

@@ -309,9 +309,12 @@ def test_the_watchdog_exits_42_on_a_wedged_step(tmp_path):
 
 
 def test_a_sharded_mesh_is_refused_naming_the_roadmap_item():
+    # the sharded step is ported: --data-model 2 1 trains on two ranks
+    # (tests/test_torch_sharded_cli.py); a mesh with an empty axis is what
+    # the CLI refuses now
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--data-model", "2", "1"],
+         "--device", "cpu", "--data-model", "0", "2"],
         capture_output=True, text=True, timeout=300, env=_env(), cwd=ROOT)
     assert out.returncode == 2
-    assert "queue 1, item 9" in out.stderr
+    assert "--data-model takes two positive extents" in out.stderr

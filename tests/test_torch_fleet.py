@@ -1336,9 +1336,15 @@ def test_cli_prices_on_the_virtual_backend_and_writes_its_report(tmp_path):
     ["--problem", "serve:p9n9", "--backend", "virtual"],
 ], ids=["system", "sharding", "serve"])
 def test_cli_refuses_the_problem_kinds_not_ported(args, tmp_path):
-    res = _cli(args, tmp_path)
-    assert res.returncode != 0
-    assert "queue 1, item 9" in res.stderr
+    # every problem kind is ported now: --system and the sharding and
+    # serve kinds tune, priced on the virtual backend
+    out = tmp_path / "fleet.json"
+    res = _cli(args + ["--budget", "3", "--out", str(out)], tmp_path)
+    assert res.returncode == 0, res.stderr[-2000:]
+    jobs = json.loads(out.read_text())["jobs"]
+    assert jobs and all(j["trials"] == 3 for j in jobs)
+    assert {j["job"].partition(":")[0] for j in jobs} >= (
+        {"sharding"} if "sharding" in " ".join(args) else {"serve"})
 
 
 def test_cli_measures_by_default_and_refuses_without_a_card(tmp_path,

@@ -1022,3 +1022,168 @@ def test_a_train_step_of_qwen_smoke_runs_on_the_card(cuda):
     assert bool(torch.isfinite(m["loss"]))
     for k, p in card.params.named_parameters():
         assert not torch.equal(p.detach(), start[k]), k
+
+
+# --- the sharded train step on a one-rank NCCL mesh ----------------------------
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank (data, model) mesh over NCCL on the card, destroyed after
+    the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1, "cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _smoke_states(cfg, opt, cuda):
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.train_step import init_train_state
+
+    model = build_model(cfg)
+    return model, [init_train_state(
+        model, opt, torch.Generator(device=cuda).manual_seed(0), cuda)
+        for _ in range(2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2.5-3b", "gemma-2b",
+                                  "command-r-plus-104b",
+                                  "llama4-scout-17b-a16e",
+                                  "deepseek-v2-236b", "internvl2-76b",
+                                  "zamba2-2.7b", "xlstm-125m",
+                                  "seamless-m4t-large-v2"])
+def test_the_one_rank_sharded_step_equals_the_plain_step(nccl_mesh, cuda,
+                                                          arch):
+    """A SMOKE arch's step through ``shard_train_state`` and
+    ``make_train_step(mesh=...)`` on a one-rank NCCL mesh against the plain
+    step from the same state on the same batch: loss and gradient norm
+    within 1e-6 relative, every parameter within 1e-6 of its largest
+    magnitude; the attention kernel launched as often by both (on rank 0's
+    local heads: all of them) where the arch's attention takes it."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.data.pipeline import (DataConfig, make_batch,
+                                           shard_batch, to_device)
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  default_rules)
+    from repro_torch.optim.adamw import AdamW, constant_lr
+    from repro_torch.train.train_step import (StepConfig, make_train_step,
+                                              shard_train_state)
+
+    cfg = SMOKES[arch]
+    rules = default_rules(multi_pod=False)
+    opt = AdamW(lr=constant_lr(1e-3))
+    model, (plain, sharded) = _smoke_states(cfg, opt, cuda)
+    sharded = shard_train_state(sharded, model, nccl_mesh, rules)
+    host = make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+        frontend=cfg.frontend, frontend_len=cfg.frontend_len,
+        frontend_dim=cfg.frontend_dim), 0)
+    runs = []
+    for state, step, batch in (
+            (plain, make_train_step(model, opt, StepConfig()),
+             to_device(host, cuda)),
+            (sharded, make_train_step(model, opt, StepConfig(),
+                                      mesh=nccl_mesh, rules=rules),
+             shard_batch(host, batch_shardings(nccl_mesh, rules, host)))):
+        before = A.flash_attention.launches
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        runs.append((A.flash_attention.launches - before,
+                     {k: float(v) for k, v in m.items()},
+                     {k: getattr(p.detach(), "full_tensor", p.detach)()
+                      for k, p in state.params.named_parameters()}))
+    (n_want, want, want_params), (n_got, got, got_params) = runs
+    # MLA (deepseek) and xLSTM take no kernel; every other arch's GQA does
+    assert n_got == n_want and (n_got > 0) == (
+        not (cfg.kv_lora_rank or cfg.xlstm))
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(got[k] - want[k]) <= 1e-6 * abs(want[k]), (k, got, want)
+    for k, p in want_params.items():
+        err = float((got_params[k] - p).abs().max()
+                    / p.abs().max().clamp_min(1e-30))
+        assert err <= 1e-6, (k, err)
+
+
+@pytest.mark.gpu
+def test_the_kernel_runs_on_local_heads_under_activation_sharding(
+        nccl_mesh, cuda):
+    """Under ``activation_sharding`` the model's attention launches the
+    kernel once a layer in the forward and once in each remat recompute,
+    on the local tensors (never the plain version), and a recompute in the
+    backward pass on the autograd engine's thread runs under the forward's
+    resolver."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.data.pipeline import (DataConfig, make_batch,
+                                           shard_batch)
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  default_rules)
+    from repro_torch.optim.adamw import AdamW, constant_lr
+    from repro_torch.train.train_step import (StepConfig, loss_and_grads,
+                                              on_mesh, shard_train_state)
+
+    cfg = SMOKES["qwen2.5-3b"]
+    rules = default_rules(multi_pod=False)
+    opt = AdamW(lr=constant_lr(1e-3))
+    model, (state, _) = _smoke_states(cfg, opt, cuda)
+    state = shard_train_state(state, model, nccl_mesh, rules)
+    host = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                 global_batch=2), 0)
+    batch = shard_batch(host, batch_shardings(nccl_mesh, rules, host))
+    plain = A.flash_attention_plain
+    calls = []
+    A.flash_attention_plain = lambda *a, **kw: calls.append(1) or plain(
+        *a, **kw)
+    try:
+        for remat, per_layer in (("none", 1), ("nothing_saveable", 2)):
+            before = A.flash_attention.launches
+            with on_mesh(nccl_mesh, rules):
+                loss, grads = loss_and_grads(model, state.params, batch,
+                                             StepConfig(remat=remat))
+            torch.cuda.synchronize()
+            assert A.flash_attention.launches - before == \
+                per_layer * cfg.n_layers, remat
+            assert bool(torch.isfinite(loss.full_tensor()))
+            assert len(grads) == sum(1 for _ in state.params.parameters())
+    finally:
+        A.flash_attention_plain = plain
+    assert not calls
+
+
+@pytest.mark.gpu
+def test_the_fleet_tunes_a_whole_system_on_the_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.fleet --system`` on a lane on cuda:0
+    with a budget of 2: every kernel job measured there (the lane launched
+    each kernel), the sharding and serve jobs priced, one store."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core import hwspec
+    from repro_torch.tuning.problem import system_problems
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    out = tmp_path / "system.json"
+    hw = hwspec.hardware_key(hwspec.detect())
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fleet", "--system",
+         "qwen2.5-3b", "--hw", hw, "--budget", "2", "--devices", "cuda:0",
+         "--store", str(tmp_path / "store.json"), "--out", str(out)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rep = json.loads(out.read_text())
+    assert sorted(j["job"] for j in rep["jobs"]) == sorted(
+        f"{p.spec}@{hw}" for p in system_problems("qwen2.5-3b"))
+    assert all(j["trials"] == 2 and j["best_runtime_s"] < float("inf")
+               for j in rep["jobs"])
+    (lane,) = rep["lanes"]
+    assert lane["device"] == "cuda:0"
+    assert all(lane["launches"].get(k, 0) > 0 for k in BENCHMARKS), lane

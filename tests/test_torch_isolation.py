@@ -62,6 +62,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.distributed.compression",
                 "repro_torch.configs", "repro_torch.configs.qwen2_5_3b",
                 "repro_torch.distributed.tuning",
+                "repro_torch.distributed.api",
+                "repro_torch.distributed.sharding",
+                "repro_torch.launch.mesh",
                 "repro_torch.serve.engine", "repro_torch.serve.autotune"} | {
         f"repro_torch.models.{m}"
         for m in ("attention", "common", "config", "convert", "encdec",

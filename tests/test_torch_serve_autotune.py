@@ -119,10 +119,13 @@ def test_serve_problem_equals_the_jax_one(bucket, params):
 
 
 def test_serve_kind_is_registered_and_sharding_is_not():
-    assert PP.problem_kinds() == ["kernel", "serve"]
+    # the sharding kind is registered now too, as in the JAX package
+    # (tests/test_torch_sharding_problem.py holds it to the JAX one)
+    assert PP.problem_kinds() == JP.problem_kinds() == \
+        ["kernel", "serve", "sharding"]
     assert PP.list_problems("serve") == JP.list_problems("serve")
-    with pytest.raises(KeyError):
-        PP.make_problem("sharding", "qwen2.5-3b/train_4k")
+    assert PP.make_problem("sharding", "qwen2.5-3b/train_4k").kind \
+        == "sharding"
     with pytest.raises(ValueError, match="bucket key"):
         PP.make_problem("serve", "p10n1")
 

@@ -3,9 +3,10 @@
 Sources:
 
 * [DS] NVIDIA H100 Tensor Core GPU data sheet: SM count, fp32 rate outside
-  the tensor cores, dense TF32 tensor-core rate (the data sheet's
-  "with sparsity" figures halved: 989 / 2 SXM, 756 / 2 PCIe), memory size
-  and bandwidth, L2, NVLink, power.
+  the tensor cores, dense TF32 and BF16 tensor-core rates (the data sheet's
+  "with sparsity" figures halved: TF32 989 / 2 SXM, 756 / 2 PCIe; BF16
+  1,979 / 2 SXM, 1,513 / 2 PCIe), memory size and bandwidth, L2, NVLink,
+  power.
 * [WP] NVIDIA H100 Tensor Core GPU Architecture white paper (Hopper): per-SM
   function units (128 fp32 lanes, 64 int32 lanes, 16 SFU lanes), 128 bytes
   per clock of shared-memory bandwidth per SM, 227 KB of shared memory a
@@ -47,6 +48,9 @@ class HardwareSpec:
     power_w: Optional[float] = None    # board power at full limit
     # FLOP/s, dense TF32 on the tensor cores (not used by the cost model)
     tf32_flops: Optional[float] = None
+    # FLOP/s, dense BF16 on the tensor cores (the dry run's roofline; not
+    # used by the cost model, the fingerprint or the store's keys)
+    bf16_flops: Optional[float] = None
 
     @property
     def nvlink_card_bw(self) -> float:
@@ -74,6 +78,7 @@ H100_SXM = HardwareSpec(
     l2_bytes=50e6,                           # [DS]
     power_w=700.0,                           # [DS]
     tf32_flops=495e12,                       # [DS] dense
+    bf16_flops=989e12,                       # [DS] dense
 )
 H100_PCIE = HardwareSpec(
     name="h100_pcie", generation="hopper",
@@ -92,6 +97,7 @@ H100_PCIE = HardwareSpec(
     l2_bytes=50e6,                           # [DS]
     power_w=350.0,                           # [DS]
     tf32_flops=378e12,                       # [DS] dense
+    bf16_flops=756e12,                       # [DS] dense
 )
 
 SPECS: Dict[str, HardwareSpec] = {s.name: s for s in (H100_SXM, H100_PCIE)}

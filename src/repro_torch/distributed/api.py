@@ -87,6 +87,42 @@ def local_op(fn: Callable, x: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def index_copy_(buf: torch.Tensor, dim: int, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """``buf.index_copy_(dim, index, src)``.  On a ``DTensor`` whose
+    ``dim`` no mesh axis splits, on each rank's local shards (``src`` laid
+    out as ``buf`` first, ``index`` whole): torch 2.11's DTensor has no
+    rule for ``index_copy_``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(buf, DTensor) or any(
+            isinstance(p, Shard) and p.dim % buf.dim() == dim % buf.dim()
+            for p in buf.placements):
+        return buf.index_copy_(dim, index, src)
+    mesh = buf.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = src.redistribute(mesh, buf.placements)
+    if isinstance(index, DTensor):
+        index = index.redistribute(mesh, [Replicate()] * mesh.ndim) \
+            ._local_tensor
+    buf._local_tensor.index_copy_(dim, index, src._local_tensor)
+    return buf
+
+
+def new_cache(init: Callable, batch: int, max_seq: int,
+              device) -> dict:
+    """The cache tree ``init(device)`` makes (zeros).  Inside a mesh each
+    leaf is a ``DTensor`` laid out as ``sharding.cache_shardings`` lays out
+    a cache, made from this rank's block alone: no rank holds the whole
+    cache."""
+    fn = _resolver()
+    if fn is None:
+        return init(device)
+    return fn.new_cache(init(torch.device("meta")), batch, max_seq, device)
+
+
 @contextlib.contextmanager
 def activation_sharding(resolver: Callable):
     """Install a resolver: (array, logical axes) -> array, and the context

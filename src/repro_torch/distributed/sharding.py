@@ -263,6 +263,23 @@ class ActResolver:
                           "every rank", stacklevel=3)
         return x.redistribute(self.mesh, target)
 
+    def new_cache(self, meta_tree, batch: int, max_seq: int, device):
+        """``api.new_cache`` under this mesh: each meta leaf as a
+        ``DTensor`` of zeros laid out by ``cache_shardings``."""
+        layouts = cache_shardings(self.mesh, self.rules, meta_tree, batch,
+                                  max_seq)
+
+        def one(t, lay):
+            block = local_slices(self.mesh, lay.spec, tuple(t.shape))
+            local = torch.zeros(tuple(s.stop - s.start for s in block),
+                                dtype=t.dtype, device=device)
+            return DTensor.from_local(local, self.mesh, lay.placements,
+                                      run_check=False,
+                                      shape=tuple(t.shape),
+                                      stride=tuple(t.stride()))
+
+        return _tree_map(one, meta_tree, layouts)
+
     def local(self, fn: Callable, args, in_logical, out_logical, **kwargs):
         by_name: Dict[str, Tuple] = {}
         prepared = []

@@ -38,9 +38,11 @@ bit for bit; they describe no card.  Pricing the layouts for the H100
 
 ``make_evaluator(hw)`` prices a skewed copy of the counters (the model
 never sees the skew) plus seeded config-keyed jitter, the JAX package's
-analytic backend.  Its compiled backend (the real train step lowered per
-configuration, the HLO's roofline priced) waits for the dry run
-(ROADMAP.md, queue 1, item 9c): ``backend="compiled"`` is refused.
+analytic backend.  ``backend="compiled"`` counts the real train step per
+configuration through the dry run (``launch.dryrun.lower_cell``: rank 0's
+ops on fake tensors on the 16×16 fake mesh) and prices its roofline at
+the H100's rates; the production mesh fixes the chip layout, so only the
+rules knobs (FSDP, SEQ, the model axis) and GA vary there.
 """
 from __future__ import annotations
 
@@ -144,10 +146,10 @@ def arch_active_param_count(cfg: ArchConfig) -> float:
 class ShardingProblem(TuningProblem):
     """Tune the train-step sharding layout of one model-zoo entry.
 
-    ``backend="analytic"`` (the default, and the only one here) measures
-    through the skewed/jittered analytic model; the JAX package's
-    ``backend="compiled"`` (the real train step lowered per configuration,
-    its HLO's roofline priced) waits for the dry run and is refused.
+    ``backend="analytic"`` (the default) measures through the
+    skewed/jittered analytic model; ``backend="compiled"`` counts the real
+    train step per configuration through the dry run and prices its
+    roofline (expensive: tens of seconds a test).
     """
 
     kind = "sharding"
@@ -166,12 +168,7 @@ class ShardingProblem(TuningProblem):
                 raise KeyError(f"unknown shape {shape!r}; available: "
                                f"{sorted(SHAPES)}")
             shape = SHAPES[shape]
-        if backend == "compiled":
-            raise ValueError(
-                "backend='compiled' lowers the real train step through the "
-                "dry run, which the port does not have yet (ROADMAP.md, "
-                "queue 1, item 9c); backend='analytic' prices the layout")
-        if backend != "analytic":
+        if backend not in ("analytic", "compiled"):
             raise ValueError(f"backend must be 'analytic' or 'compiled', "
                              f"got {backend!r}")
         self.arch: ArchConfig = arch
@@ -293,6 +290,8 @@ class ShardingProblem(TuningProblem):
         return cs
 
     def make_evaluator(self, hw: HardwareSpec) -> Optional[Callable]:
+        if self.backend == "compiled":
+            return self._compiled_evaluator(hw)
         from repro_torch.core.evaluate import (PROFILE_FIXED,
                                                PROFILE_SLOWDOWN,
                                                TEST_OVERHEAD)
@@ -305,5 +304,51 @@ class ShardingProblem(TuningProblem):
                 return rt, cs, rt * PROFILE_SLOWDOWN + TEST_OVERHEAD \
                     + PROFILE_FIXED
             return rt, None, rt + TEST_OVERHEAD
+
+        return fn
+
+    def _compiled_evaluator(self, hw: HardwareSpec) -> Callable:
+        """Count the REAL train step per configuration (the dry run); price
+        its roofline (flops / device-memory bytes / ring-scaled collective
+        bytes) as counters.  The production mesh fixes the chip layout, so
+        only the rules knobs (FSDP/SEQ/TP) vary here; mesh-shape pricing
+        stays with the analytic backend."""
+        from repro_torch.core.evaluate import (PROFILE_FIXED,
+                                               PROFILE_SLOWDOWN,
+                                               TEST_OVERHEAD)
+        space = self.space()
+
+        def fn(index: int, profile: bool):
+            from repro_torch.launch.dryrun import lower_cell
+            cfg = space[int(index)]
+            _, m = parse_mesh(cfg["MESH"])
+            rec = lower_cell(
+                self.arch.name, self.shape.name, multi_pod=False,
+                step_overrides={"microbatches": int(cfg.get("GA", 1))},
+                rules_overrides={
+                    "embed": "data" if cfg["FSDP"] else None,
+                    "seq": "data" if cfg["SEQ"] else None,
+                    **({} if m > 1 else
+                       {k: None for k in
+                        ("vocab", "heads", "kv", "mlp", "expert")}),
+                },
+                verbose=False)
+            rf = rec["roofline"]
+            rt = max(float(rf["compute_s"]), float(rf["memory_s"]),
+                     float(rf["collective_s"]))
+            chips = max(1.0, float(rf.get("chips", 1)))
+            ops = {
+                C.FP32_FLOPS: float(rf["flops"]) / chips,
+                C.DRAM_RD: 0.6 * float(rf["hbm_bytes"]) / chips,
+                C.DRAM_WR: 0.4 * float(rf["hbm_bytes"]) / chips,
+                C.NVLINK_B: float(rf["collective_bytes"]),
+                C.CTAS: float(self.arch.n_layers),
+            }
+            cs = costmodel.execute(ops, hw)
+            cs.runtime = max(rt, 1e-9)
+            if profile:
+                return cs.runtime, cs, rt * PROFILE_SLOWDOWN \
+                    + TEST_OVERHEAD + PROFILE_FIXED
+            return cs.runtime, None, rt + TEST_OVERHEAD
 
         return fn

@@ -25,12 +25,17 @@ D.  Above D = 128 a warp owns one m16 tile instead of two (a 64-row query
 sub-tile), so that the accumulators and the shared tiles of every
 configuration fit at D = 256.
 
-``flash_attention`` launches the kernel for CUDA tensors and raises when the
-build or the launch fails; it takes ``flash_attention_plain`` only for
-tensors on the CPU.  Its output has no gradient: on CUDA tensors it
-refuses an input that requires one while grad mode is on, since training
-reaches it through ``repro_torch.models.attention.KernelAttention``,
-whose backward recomputes the attention in plain PyTorch.
+``flash_attention`` checks its arguments, pads the head dim and calls the
+custom operator ``repro_torch::flash_attention``, which the dispatcher
+routes by device: on CUDA tensors it launches the kernel and raises when
+the build or the launch fails, on CPU tensors it is the plain version, and
+on fake tensors (the dry run, ``repro_torch.roofline.op_count``) its fake
+implementation gives the output's shape, so that the dry run sees one
+launch a call with the kernel's own work (``attention_flops``).  Its
+output has no gradient: it refuses an input that requires one while grad
+mode is on, since training reaches it through
+``repro_torch.models.attention.KernelAttention``, whose backward
+recomputes the attention in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -133,39 +138,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, s, d)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    block_q: int = 256, block_k: int = 256, keep_p: int = 1,
-                    q_prefetch: int = 1, causal: bool = True,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, S, D) attention of fp32 ``q``, ``k``, ``v`` with the
-    parameters of the attention space; D is any of 1 to ``MAX_HEAD_DIM``
-    (on the card, padded to ``padded_head_dim(D)``)."""
-    _check(q, k, v, block_q, block_k, keep_p, q_prefetch)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
-                         f"{q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention's output has no gradient: differentiate "
-            "through repro_torch.models.attention.KernelAttention, whose "
-            "backward recomputes the attention in plain PyTorch")
-    b, h, s, d = q.shape
+def attention_flops(shape, causal: bool) -> float:
+    """The kernel's products' flops on (B, H, S, D) inputs: QKᵀ and PV,
+    2·D each a (query, key) pair, over the S(S+1)/2 causal pairs a head
+    (S² not causal); each is three TF32 products on the card (3xTF32)."""
+    b, h, s, d = shape
+    pairs = s * (s + 1) / 2 if causal else float(s) * s
+    return 4.0 * b * h * d * pairs
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
+            block_k: int, keep_p: int, q_prefetch: int, causal: bool,
+            scale: float) -> torch.Tensor:
+    """One launch of the kernel on checked, padded (B, H, S, D) tensors."""
+    b, h, s, dp = q.shape
     if -(-s // block_q) > MAX_Q_BLOCKS:
         raise ValueError(f"S / block_q must be at most {MAX_Q_BLOCKS}")
-    scale = 1.0 / (d ** 0.5) if sm_scale is None else float(sm_scale)
-    dp = padded_head_dim(d)
-    if dp != d:
-        # zero columns change no score and give zero output columns
-        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention copies rows in 16-byte chunks: "
                          "the storage of q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
-        return out[..., :d]
+        return out
     rc = launch(_entry(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), b * h, s, dp, block_q, block_k, keep_p,
                 q_prefetch, int(bool(causal)), scale)
@@ -175,6 +171,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{(block_q, block_k)}, keep_p={keep_p}, "
                            f"q_prefetch={q_prefetch}")
     flash_attention.launches += 1
+    return out
+
+
+@_launch.register_kernel("cpu")
+def _plain(q, k, v, block_q, block_k, keep_p, q_prefetch, causal, scale):
+    return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+
+
+@_launch.register_fake
+def _launch_fake(q, k, v, block_q, block_k, keep_p, q_prefetch, causal,
+                 scale):
+    return torch.empty_like(q)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    block_q: int = 256, block_k: int = 256, keep_p: int = 1,
+                    q_prefetch: int = 1, causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, S, D) attention of fp32 ``q``, ``k``, ``v`` with the
+    parameters of the attention space; D is any of 1 to ``MAX_HEAD_DIM``,
+    padded to ``padded_head_dim(D)``."""
+    _check(q, k, v, block_q, block_k, keep_p, q_prefetch)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's output has no gradient: differentiate "
+            "through repro_torch.models.attention.KernelAttention, whose "
+            "backward recomputes the attention in plain PyTorch")
+    d = q.shape[3]
+    scale = 1.0 / (d ** 0.5) if sm_scale is None else float(sm_scale)
+    dp = padded_head_dim(d)
+    if dp != d:
+        # zero columns change no score and give zero output columns
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    out = torch.ops.repro_torch.flash_attention(
+        q, k, v, block_q, block_k, keep_p, q_prefetch, bool(causal), scale)
     return out if dp == d else out[..., :d].contiguous()
 
 

@@ -220,6 +220,36 @@ def plain_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _decode_local(rep: int, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  pos: torch.Tensor, offsets) -> torch.Tensor:
+    """One-token attention of q (B, 1, H, D) over the cache kc, vc
+    (B, T, Hkv, D) up to ``pos`` and the token's own k, v (B, 1, Hkv, D),
+    on this rank's heads (``call_local``); the heads paired as
+    ``_heads_local`` pairs them.  Returns fp32 (B, 1, H, D)."""
+    h0, kv0 = offsets[0][2], offsets[1][2]
+    b, _, h, hd = q.shape
+    if h0 != kv0 * rep or h != k.shape[2] * rep:
+        idx = torch.arange(h0, h0 + h, device=k.device) // rep - kv0
+        k, v, kc, vc = (t.index_select(2, idx) for t in (k, v, kc, vc))
+    hk = k.shape[2]
+    t = kc.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q * scale).reshape(b, 1, hk, h // hk, hd).float()
+    sij = torch.einsum("bshrd,bthd->bhrst", qf, kc.float())
+    valid = torch.arange(t, device=q.device)[None, :] < pos
+    sij = torch.where(valid, sij, NEG_INF)
+    s_self = torch.einsum("bshrd,bshd->bhrs", qf, k.float())
+    sij = torch.cat([sij, s_self[..., None]], dim=-1)
+    pr = torch.softmax(sij, dim=-1)
+    out = torch.einsum("bhrst,bthv->bhrsv",
+                       pr[..., :t].to(vc.dtype).float(), vc.float())
+    # current token's value: (B,Hk,rep,1,1)·(B,Hk,1,1,Dv)
+    v_self = v[:, 0][:, :, None, None, :]
+    out = out + pr[..., -1][..., None] * v_self.float()
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+
+
 def gqa_apply(
     p: Params,
     cfg: AttnConfig,
@@ -253,23 +283,11 @@ def gqa_apply(
         pos = cache["pos"]                          # scalar int32 tensor
         q = apply_rope(q, pos[None, None], cfg.rope_theta)
         k = apply_rope(k, pos[None, None], cfg.rope_theta)
-        kc, vc = cache["k"], cache["v"]
-        t = kc.shape[1]
-        rep = h // hk
-        scale = 1.0 / math.sqrt(hd)
-        qf = (q * scale).reshape(b, 1, hk, rep, hd).float()
-        sij = torch.einsum("bshrd,bthd->bhrst", qf, kc.float())
-        valid = torch.arange(t, device=x.device)[None, :] < pos
-        sij = torch.where(valid, sij, NEG_INF)
-        s_self = torch.einsum("bshrd,bshd->bhrs", qf, k.float())
-        sij = torch.cat([sij, s_self[..., None]], dim=-1)
-        pr = torch.softmax(sij, dim=-1)
-        out = torch.einsum("bhrst,bthv->bhrsv",
-                           pr[..., :t].to(vc.dtype).float(), vc.float())
-        # current token's value: (B,Hk,rep,1,1)·(B,Hk,1,1,Dv)
-        v_self = v[:, 0][:, :, None, None, :]
-        out = out + pr[..., -1][..., None] * v_self.float()
-        out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+        heads = ("batch", None, "heads", None)
+        kv = ("batch", None, "kv", None)
+        out = call_local(functools.partial(_decode_local, h // hk),
+                         (q, k, v, cache["k"], cache["v"], pos),
+                         (heads, kv, kv, kv, kv, ()), heads)
         new_cache = {"k_new": k, "v_new": v}
 
     y = dense(out.reshape(b, s, h * hd).to(x.dtype), p["wo"])

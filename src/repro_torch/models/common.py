@@ -28,7 +28,7 @@ from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed.api import call_local, shard_act
 
 Params = Dict[str, Any]
 
@@ -48,6 +48,12 @@ def _tree_map_defs(fn: Callable, defs):
     if isinstance(defs, ParamDef):
         return fn(defs)
     return {k: _tree_map_defs(fn, v) for k, v in defs.items()}
+
+
+def abstract_params(defs, dtype: torch.dtype):
+    """ParamDef tree -> tree of meta tensors (the dry run; no storage)."""
+    return _tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
 
 
 def logical_specs(defs):
@@ -136,11 +142,20 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` (V, D) at ``tokens``.  Under a mesh the table's
-    embed dim is gathered over its FSDP axis first, as FSDP gathers any
-    weight before use, and the vocab stays split: DTensor's lookup is
-    wrong for a table split on both dims (ROADMAP.md, queue 3)."""
-    return shard_act(table, ("vocab", None))[tokens.long()]
+    """Rows of ``table`` (V, D) at ``tokens``.  Under a mesh the table is
+    gathered whole on every rank first and each rank looks up its own
+    tokens (``call_local``), its gradient reduced onto the table's layout
+    afterwards: DTensor's lookup is wrong for a table split on both dims
+    (ROADMAP.md, queue 3), and torch 2.11's rules for indexing take
+    neither a batch split over two mesh axes nor the backward of a lookup
+    in a replicated table."""
+    return call_local(_lookup, (table, tokens),
+                      ((None, None), ("batch", None)), ("batch", None, None))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor,
+            offsets) -> torch.Tensor:
+    return table[tokens.long()]
 
 
 # --- rotary position embeddings ----------------------------------------------

@@ -27,7 +27,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.api import shard_act, split_heads
+from repro_torch.distributed.api import new_cache, shard_act, split_heads
 from repro_torch.models.attention import (attend_heads, chunked_attention,
                                           gqa_apply, gqa_defs,
                                           gqa_init_cache)
@@ -165,14 +165,14 @@ def encdec_prefill(cfg: ArchConfig, params: Params, batch: Dict,
     """Encode ``frames``, then the decoder over ``tokens``, keeping each
     layer's self K/V and cross K/V; the last position's logits (B, 1, V)."""
     enc_out = encode(cfg, params, batch["frames"])
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     b, s, _ = x.shape
     if s > max_seq:
         raise ValueError(f"a prompt of {s} positions does not fit a cache "
                          f"of max_seq={max_seq}")
-    self_c = broadcast_cache(gqa_init_cache(attn_config(cfg), b, max_seq,
-                                            x.dtype, x.device),
-                             (cfg.dec_layers,))
+    self_c = new_cache(lambda dev: broadcast_cache(gqa_init_cache(
+        attn_config(cfg), b, max_seq, x.dtype, dev), (cfg.dec_layers,)),
+        b, max_seq, x.device)
     cross = []
     for i, lp in enumerate(params["dec"]):
         kv = _enc_kv(cfg, lp["xattn"], enc_out)
@@ -191,7 +191,7 @@ def encdec_decode(cfg: ArchConfig, params: Params, cache: Dict,
                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
     """One-token decode; the self cache passed in is updated in place."""
     sc, cc = cache["self"], cache["cross"]
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     news = []
     for i, lp in enumerate(params["dec"]):
         x, new_kv = _dec_block(cfg, lp, x, (cc["k"][i], cc["v"][i]),

@@ -27,7 +27,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed.api import new_cache, shard_act
 from repro_torch.models.attention import gqa_apply, gqa_defs, gqa_init_cache
 from repro_torch.models.common import (ParamDef, Params, broadcast_cache,
                                        cross_entropy_from_hidden, dense,
@@ -172,8 +172,9 @@ def zamba2_prefill(cfg: ArchConfig, params: Params, batch: Dict,
         raise ValueError(f"a prompt of {s} positions does not fit a cache "
                          f"of max_seq={max_seq}")
     n_super = cfg.n_layers // cfg.mamba_per_attn
-    acache = broadcast_cache(gqa_init_cache(attn_config(cfg), b, max_seq,
-                                            x.dtype, x.device), (n_super,))
+    acache = new_cache(lambda dev: broadcast_cache(gqa_init_cache(
+        attn_config(cfg), b, max_seq, x.dtype, dev), (n_super,)),
+        b, max_seq, x.device)
     mstates = []
     for i, sb in enumerate(params["supers"]):
         row = []

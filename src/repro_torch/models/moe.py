@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import shard_act
 from repro_torch.models.common import (ParamDef, Params, dense, mlp_apply,
                                        mlp_defs)
 
@@ -103,13 +104,23 @@ def moe_apply(p: Params, cfg: MoEConfig, x: torch.Tensor
     return out, aux
 
 
+def group_sizes(flat_expert: torch.Tensor, e: int):
+    """The tokens routed to each of the ``e`` experts, read on the host.
+    The dry run, whose fake tensors hold no routing, puts its own
+    assumption here while it counts (``launch.dryrun.expected_loads``)."""
+    return torch.bincount(flat_expert, minlength=e).tolist()
+
+
 def moe_apply_dropless(p: Params, cfg: MoEConfig,
                        x: torch.Tensor) -> torch.Tensor:
     """Inference dispatch: exact, dropless, sorted by expert.
 
     Where the JAX package calls ``jax.lax.ragged_dot`` (a grouped GEMM
     outside any Pallas kernel), the port takes one ``torch.matmul`` for
-    each expert that has tokens; the group sizes are read on the host."""
+    each expert that has tokens; the group sizes are read on the host.
+    Under a mesh every rank routes every token (the tokens made whole
+    first): DTensor has no rule for the sort's segments."""
+    x = shard_act(x, (None, None, None))
     b, sq, d = x.shape
     t = b * sq
     e, k = cfg.n_experts, cfg.top_k
@@ -121,7 +132,7 @@ def moe_apply_dropless(p: Params, cfg: MoEConfig,
     order = torch.argsort(flat_expert, stable=True)
     tok_of = order // k                                       # source token
     xs = xt[tok_of]                                           # (T*k, D)
-    sizes = torch.bincount(flat_expert, minlength=e).tolist()
+    sizes = group_sizes(flat_expert, e)
 
     ys = torch.empty_like(xs)
     start = 0
@@ -133,7 +144,7 @@ def moe_apply_dropless(p: Params, cfg: MoEConfig,
             start += n
 
     gv = gate_vals.reshape(-1)[order]                         # (T*k,)
-    out = torch.zeros((t, d), dtype=ys.dtype, device=x.device).index_add_(
+    out = torch.zeros_like(xt, dtype=ys.dtype).index_add_(
         0, tok_of, ys * gv[:, None].to(ys.dtype))
     out = out.reshape(b, sq, d).to(x.dtype)
     if cfg.n_shared:

@@ -11,9 +11,14 @@ module; ``prefill``, ``decode`` and ``loss`` take that module where the
 JAX functions take their nested dicts.  ``specs`` gives the ParamDefs'
 logical axes in the JAX layout (stacked leaves with their ``layers``
 axes), ``named_specs`` the same for each parameter of the module (one a
-layer); the sharded train step lays the parameters out by them.  The
-dry-run's abstract trees (``abstract``, ``cache_specs``, ``input_specs``)
-wait for ROADMAP.md, queue 1, item 9c.
+layer); the sharded train step lays the parameters out by them.
+
+The dry run's abstract trees hold ``meta`` tensors, the counterpart of
+JAX's ``ShapeDtypeStruct``: a shape and a dtype, no storage.
+``abstract`` and ``cache_specs`` follow the JAX layout (stacked leaves
+with their ``layers`` axes), ``input_specs`` gives every model input of a
+``ShapeConfig``, and ``abstract_module`` the parameters as a ``ParamTree``
+of meta tensors, the module the step takes.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, transformer
-from repro_torch.models.common import (ParamDef, ParamTree, init_leaf,
-                                       logical_specs)
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.common import (ParamDef, ParamTree, abstract_params,
+                                       init_leaf, logical_specs)
+from repro_torch.models.config import ArchConfig, ShapeConfig
+
+META = torch.device("meta")
 
 # the subtrees stacked along a layers axis, split into one module a layer
 STACKED = ("blocks", "supers", "pairs", "enc", "dec")
@@ -73,6 +80,17 @@ class Model:
         dt = model_dtype(self.cfg)
         return self.module(lambda path, d: init_leaf(d, generator, dt, dev))
 
+    def abstract(self):
+        """The parameters' shapes and dtype as a tree of meta tensors, the
+        JAX layout (stacked leaves whole); nothing is allocated."""
+        return abstract_params(self.defs, model_dtype(self.cfg))
+
+    def abstract_module(self) -> ParamTree:
+        """The parameters as a ``ParamTree`` of meta tensors."""
+        dt = model_dtype(self.cfg)
+        return self.module(
+            lambda path, d: torch.empty(d.shape, dtype=dt, device=META))
+
     def specs(self):
         """The logical-axis tree of the parameters, the JAX layout."""
         return logical_specs(self.defs)
@@ -80,10 +98,8 @@ class Model:
     def named_specs(self):
         """Module parameter name -> its logical axes (a stacked leaf's
         layers axes dropped: the module holds one tensor a layer)."""
-        meta = self.module(
-            lambda path, d: torch.empty(d.shape, device="meta"))
         out = {}
-        for name, _ in meta.named_parameters():
+        for name, _ in self.abstract_module().named_parameters():
             parts = name.split(".")
             keys = [k for k in parts if not k.isdigit()]
             d = self.defs
@@ -107,6 +123,39 @@ class Model:
         return _family(self.cfg)[3](self.cfg, batch, max_seq,
                                     model_dtype(self.cfg),
                                     resolve_device(device))
+
+    def cache_specs(self, batch: int, max_seq: int):
+        """``init_cache``'s tree as meta tensors."""
+        return _family(self.cfg)[3](self.cfg, batch, max_seq,
+                                    model_dtype(self.cfg), META)
+
+    # --- dry-run inputs -----------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig):
+        """Meta stand-ins for every model input of ``shape``: int32 tokens
+        (and labels to train), the frontend's fp32 embeddings; a vision
+        prefix counts toward a prefill's sequence, as in JAX."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=META)
+
+        if shape.kind == "train":
+            specs = {"tokens": spec((b, s), torch.int32),
+                     "labels": spec((b, s), torch.int32)}
+        elif shape.kind == "prefill":
+            s_text = s - (cfg.frontend_len if cfg.frontend == "vision" else 0)
+            specs = {"tokens": spec((b, s_text), torch.int32)}
+        else:  # decode: one new token against a cache of length s
+            specs = {"tokens": spec((b, 1), torch.int32)}
+        if shape.kind != "decode":
+            if cfg.frontend == "vision":
+                specs["patch_embeds"] = spec(
+                    (b, cfg.frontend_len, cfg.frontend_dim), torch.float32)
+            if cfg.frontend == "audio":
+                specs["frames"] = spec(
+                    (b, cfg.frontend_len, cfg.frontend_dim), torch.float32)
+        return specs
 
     # --- bookkeeping ------------------------------------------------------------
     def param_count(self) -> int:

@@ -18,7 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed.api import index_copy_, new_cache, shard_act
 from repro_torch.models.attention import (AttnConfig, gqa_apply, gqa_defs,
                                           gqa_init_cache, mla_apply,
                                           mla_defs, mla_init_cache)
@@ -183,7 +183,7 @@ def update_stacked_cache(cfg: ArchConfig, cache: Dict,
     for name, new in names:
         buf = cache[name]
         at = torch.clamp(cache["pos"][:1].long(), max=buf.shape[2] - 1)
-        buf.index_copy_(2, at, new_kv[new])
+        index_copy_(buf, 2, at, new_kv[new])
     out = {name: cache[name] for name, _ in names}
     out["pos"] = cache["pos"] + 1
     return out
@@ -198,7 +198,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict,
     the new token's K/V; the stacked cache is written once after the last
     layer.  The cache passed in is updated in place (the JAX engine
     donates it)."""
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(params["embed"], batch["tokens"])
     news = []
     for i, lp in enumerate(params["blocks"]):
         cache_l = {k: v[i] for k, v in cache.items()}
@@ -229,7 +229,8 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict,
     if s > max_seq:
         raise ValueError(f"a prompt of {s} positions does not fit a cache "
                          f"of max_seq={max_seq}")
-    cache = init_cache(cfg, b, max_seq, x.dtype, x.device)
+    cache = new_cache(lambda dev: init_cache(cfg, b, max_seq, x.dtype, dev),
+                      b, max_seq, x.device)
     for i, lp in enumerate(params["blocks"]):
         h, kv = _attn(cfg, lp, rms_norm(x, lp["ln1"]))
         for name, t in kv.items():

@@ -17,8 +17,8 @@ over "data", TP over "model") and the moments as their parameters;
 activation resolver, DTensor reduces each gradient onto its parameter's
 layout, the clip's norm covers the full tensors, and AdamW updates each
 rank's local shards.  On a one-device mesh nothing is split, as in JAX.
-The dry-run state (``abstract_train_state``) waits for ROADMAP.md, queue
-1, item 9c.
+``abstract_train_state`` is the dry run's state: the same tree as meta
+tensors, nothing allocated.
 """
 from __future__ import annotations
 
@@ -27,9 +27,9 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.distributed.api import activation_sharding
+from repro_torch.distributed.api import activation_sharding, shard_act
 from repro_torch.distributed.compression import quantize_dequantize_tree
 from repro_torch.distributed.sharding import (ShardingRules,
                                               make_act_resolver,
@@ -62,6 +62,17 @@ def init_train_state(model: Model, optimizer: AdamW,
     """Trainable parameters drawn by ``model.init`` (on the card unless
     ``device`` says otherwise), zero moments, step 0."""
     params = model.init(generator, device).requires_grad_()
+    opt = optimizer.init(dict(params.named_parameters()))
+    return TrainState(params=params, opt=opt,
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=opt.count.device))
+
+
+def abstract_train_state(model: Model, optimizer: AdamW) -> TrainState:
+    """The state ``init_train_state`` makes, as meta tensors (shapes and
+    dtypes, no storage): trainable parameters, fp32 moments, the count and
+    the step."""
+    params = model.abstract_module().requires_grad_()
     opt = optimizer.init(dict(params.named_parameters()))
     return TrainState(params=params, opt=opt,
                       step=torch.zeros((), dtype=torch.int32,
@@ -110,6 +121,22 @@ def loss_and_grads(model: Model, params: ParamTree, batch: Dict,
     return loss.detach(), dict(zip(names, grads))
 
 
+def microbatch(x: torch.Tensor, mbs: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``mbs``: rows [i·B/mbs, (i+1)·B/mbs), as the
+    JAX package's reshape to (mbs, B/mbs, ...) takes them.  ``DTensor``
+    cannot view a batch split over the mesh that way (a dim of ``mbs``
+    that the data axis does not divide): a sharded batch is made whole on
+    every rank first and the microbatch laid out again by its logical
+    axes."""
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh,
+                           [Replicate()] * x.device_mesh.ndim)
+    mb = x.reshape((mbs, x.shape[0] // mbs) + tuple(x.shape[1:]))[i]
+    if isinstance(x, DTensor):
+        mb = shard_act(mb, ("batch",) + (None,) * (mb.dim() - 1))
+    return mb
+
+
 def on_mesh(mesh, rules: Optional[ShardingRules]):
     """The context a sharded step runs under: the activation resolver of
     ``mesh`` and ``rules`` (nothing without a mesh)."""
@@ -145,9 +172,7 @@ def make_train_step(
             grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in state.params.named_parameters()}
             for i in range(mbs):
-                mb = {k: x.reshape((mbs, x.shape[0] // mbs)
-                                   + tuple(x.shape[1:]))[i]
-                      for k, x in batch.items()}
+                mb = {k: microbatch(x, mbs, i) for k, x in batch.items()}
                 l, g = loss_and_grads(model, state.params, mb, step_cfg)
                 for k, t in g.items():
                     grads[k].add_(t.float())

@@ -16,6 +16,7 @@ hardware's approximations).  The GEMM and attention take their products by
 their fp32 oracles (TF32 off) at the registry's full sizes too.
 """
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -1187,3 +1188,79 @@ def test_the_fleet_tunes_a_whole_system_on_the_card(cuda, tmp_path):
     (lane,) = rep["lanes"]
     assert lane["device"] == "cuda:0"
     assert all(lane["launches"].get(k, 0) > 0 for k in BENCHMARKS), lane
+
+
+# --- the dry run and step tuning on the card ------------------------------------
+# measured / predicted peak of a qwen1.5-smoke step (8 x 128), read as
+# the step tuner reads it
+DRY_PEAK_TOL = 0.06
+@pytest.fixture
+def smoke_qwen(monkeypatch):
+    """qwen1.5-0.5b's SMOKE config under its name, for the step tuner and
+    the dry run."""
+    import repro_torch.configs as cfgs
+    import repro_torch.launch.dryrun as dryrun
+    from repro_torch.configs import SMOKES
+
+    archs = dict(cfgs.ARCHS, **{"qwen1.5-0.5b": SMOKES["qwen1.5-0.5b"]})
+    monkeypatch.setattr(cfgs, "ARCHS", archs)
+    monkeypatch.setattr(dryrun, "ARCHS", archs)
+    return SMOKES["qwen1.5-0.5b"]
+
+
+@pytest.mark.gpu
+def test_the_dry_runs_launches_are_the_cards(cuda, smoke_qwen):
+    """The dry run's count of a qwen1.5-smoke step launches the kernel as
+    often as the same step on the card does (twice a layer under
+    nothing_saveable), and predicts the step's own peak memory (as
+    ``MeasuredStepEvaluator`` reads it) within DRY_PEAK_TOL; every timed
+    loss is finite."""
+    from repro_torch.core.step_tuner import STEPS_TIMED, MeasuredStepEvaluator
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_step import StepConfig
+
+    scfg = StepConfig(loss_chunks=1)
+    count = dryrun.count_train_step("qwen1.5-0.5b", scfg, 8, 128)
+    ev = MeasuredStepEvaluator("qwen1.5-0.5b", 8, 128, cuda, verbose=False)
+    cfg = {"MICROBATCHES": 1, "REMAT": scfg.remat, "LOSS_CHUNKS": 1,
+           "KV_CHUNK": scfg.kv_chunk, "FSDP": 0}
+    before = A.flash_attention.launches
+    ev._evaluate(ev.space.index_of(cfg), False)
+    launches = (A.flash_attention.launches - before) / (STEPS_TIMED + 1)
+    assert launches == count.launches["attention"] == 2 * smoke_qwen.n_layers
+    test = ev.tests[-1]
+    ratio = test["peak_bytes"] / count.peak_bytes
+    print(f"measured / predicted peak {ratio:.4f}")
+    assert abs(ratio - 1.0) < DRY_PEAK_TOL, (test, count.peak_bytes, ratio)
+    assert all(math.isfinite(x) for x in test["losses"])
+
+
+@pytest.mark.gpu
+def test_the_measured_step_tune_runs_on_the_card(cuda, smoke_qwen, tmp_path,
+                                                 monkeypatch):
+    """``launch.tune --backend measured`` on qwen1.5-smoke with a budget
+    of 2: each test a timed step on the card (the kernel launched, its
+    plain version never called), the best a measured one."""
+    import json
+
+    import repro_torch.kernels.attention.kernel as K
+    from repro_torch.launch import tune
+
+    plain = []
+    monkeypatch.setattr(K, "flash_attention_plain",
+                        lambda *a, **kw: plain.append(1))
+    out = tmp_path / "t.json"
+    before = A.flash_attention.launches
+    assert tune.main(["--arch", "qwen1.5-0.5b", "--backend", "measured",
+                      "--batch", "8", "--seq", "128", "--searcher",
+                      "random", "--budget", "2", "--out", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["steps"] == 2 and len(rec["tests"]) == 2
+    assert all(t["seconds"] > 0 and t["peak_bytes"] > 0
+               for t in rec["tests"])
+    assert all(len(t["losses"]) == 3 and all(x == x and abs(x) < 1e30
+                                             for x in t["losses"])
+               for t in rec["tests"])
+    assert rec["best_ms"] == pytest.approx(
+        1e3 * min(t["seconds"] for t in rec["tests"]))
+    assert A.flash_attention.launches > before and not plain

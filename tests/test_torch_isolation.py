@@ -65,6 +65,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.distributed.api",
                 "repro_torch.distributed.sharding",
                 "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.launch.tune",
+                "repro_torch.roofline.op_count",
+                "repro_torch.roofline.analysis",
+                "repro_torch.core.step_tuner",
                 "repro_torch.serve.engine", "repro_torch.serve.autotune"} | {
         f"repro_torch.models.{m}"
         for m in ("attention", "common", "config", "convert", "encdec",
@@ -119,6 +123,32 @@ def test_the_fleet_worker_and_cli_run_with_jax_and_repro_blocked(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert cli.returncode == 0, cli.stderr
     assert json.loads(out.read_text())["jobs"][0]["trials"] == 3
+
+
+def test_the_dryrun_and_tune_clis_run_with_jax_and_repro_blocked(tmp_path):
+    """The dry run counts a production cell (qwen1.5-0.5b's decode on the
+    16x16 fake mesh) and the tune CLI prices a sharding problem, with jax
+    and the JAX package blocked."""
+    out = tmp_path / "cells.jsonl"
+    dry = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.dryrun", "--arch", "qwen1.5-0.5b", "--shape",
+         "decode_32k", "--out", str(out)],
+        capture_output=True, text=True, timeout=300)
+    assert dry.returncode == 0, dry.stderr[-3000:]
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"] > 0
+    tuned = tmp_path / "tune.json"
+    tune = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT / "src"),
+         "repro_torch.launch.tune", "--problem",
+         "sharding:qwen2.5-3b/train_4k", "--budget", "3", "--out",
+         str(tuned)],
+        capture_output=True, text=True, timeout=300)
+    assert tune.returncode == 0, tune.stderr[-3000:]
+    assert json.loads(tuned.read_text())["trials"] == 3
+    assert "blocked import" not in dry.stderr + tune.stderr
 
 
 def test_the_daemon_cli_runs_with_jax_and_repro_blocked(tmp_path):

@@ -147,12 +147,21 @@ def test_problem_identity_and_errors_equal_the_jax_ones():
 
 
 def test_the_compiled_backend_is_refused_naming_the_dry_run():
-    # the JAX package builds it (and lowers the train step per test); the
-    # port has no dry run yet
-    assert JT.ShardingProblem("qwen2.5-3b", backend="compiled").backend \
-        == "compiled"
-    with pytest.raises(ValueError, match="item 9c"):
-        PT.ShardingProblem("qwen2.5-3b", backend="compiled")
+    """The compiled backend is no longer refused: the port builds it as
+    the JAX package does, an evaluator over the dry run (its parity:
+    ``tests/test_torch_step_tuner.py``), and an unknown backend is refused
+    naming both."""
+    j = JT.ShardingProblem("qwen2.5-3b", backend="compiled")
+    p = PT.ShardingProblem("qwen2.5-3b", backend="compiled")
+    assert p.backend == j.backend == "compiled"
+    assert (p.name, p.bucket, p.spec) == (j.name, j.bucket, j.spec)
+    assert callable(p.make_evaluator(jhw_port("tpu_v5e")))
+    with pytest.raises(ValueError, match="'analytic' or 'compiled'"):
+        PT.ShardingProblem("qwen2.5-3b", backend="lowered")
+
+
+def jhw_port(name):
+    return port_spec(jhw.SPECS[name])
 
 
 def test_arch_param_counts_equal_the_jax_ones():

@@ -4,7 +4,7 @@ NVIDIA card, for every ported kernel: matmul, transpose, conv2d, coulomb
 and nbody (the paper's five benchmarks) and flash attention; then the
 cross-space transfer path of the ``ConfigStore``, the fleet, the tuning
 service, serving, training, the sharded train step, the dry run and step
-tuning on the card.
+tuning on the card, and the five examples as a user runs them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -120,22 +120,43 @@ Then, kernel by kernel (the table ``PORTS``):
              jobs measured on the card, the sharding (64 devices) and serve
              jobs priced, one store; each job's trials, best and seconds.
 14. dryrun — the dry run and step tuning (``phase_dryrun``), run after
-             phase 13 and reported in phase 11: (a) the dry run's count of
+             phase 15 and reported in phase 11: (a) the dry run's count of
              phase 12's step (one-rank fake mesh: flops by unit, bytes,
              kernel launches, predicted peak, the roofline at the card's
              rates) beside the same step on the card (median of 3 timed
              with CUDA events, ``max_memory_allocated``, launches, device
              time under ``torch.profiler``): the launches must be equal;
              (b) ``python -m repro_torch.launch.dryrun`` on qwen2.5-3b's
-             train_4k (both meshes), prefill_32k and decode_32k, each a
-             process of its own started at the phase's start: every record
-             ok, each one's per-device peak against 80 GB; (c)
-             ``launch.tune --backend measured`` at 8 x 2048 on the card in
-             this process (8 profiled training tests saved as a model, 8
+             train_4k (both meshes), prefill_32k and decode_32k,
+             llama4-scout-17b-a16e's three, xlstm-125m's decode_32k and
+             deepseek-v2-236b's prefill_32k and decode_32k (its train
+             cell takes over 10 minutes), each a process of its own
+             started at the script's start at the lowest CPU priority and
+             paused while a host-bound figure of phases 9, 10, 12, 13 or
+             15 is taken (they need no card): every record ok, each one's per-device peak
+             against 80 GB, the embedding table's and the MoE's shares;
+             (c) ``launch.tune --backend measured`` at 8 x 2048 on the card
+             in this process (4 profiled training tests saved as a model, 4
              tuning tests; the kernel launched, its plain version never
              called), its best re-timed beside the default StepConfig; (d)
              ``ShardingProblem(backend="compiled")`` at three layouts in a
              spawned process beside (a) and (c).
+15. examples — the port's five examples (``phase_examples``), run after
+             phase 13, each as a user runs it, ``python examples/torch_<name>.py`` in a
+             subprocess from the checkout's root, each to exit 0: the
+             quickstart in full (train on the H100 PCIe's spec, save, load
+             on the card, tune the GEMM 25 tests on the card, the best
+             configuration's kernel at 256³ within 2e-4 of the fp32
+             oracle), the serving autotuner's two runs (the second at 0
+             live trials), qwen2.5-3b's engine at full width and depth
+             (tokens/s, the attention kernel launched once a layer a
+             wave), the trainer at 4 steps with a checkpoint at steps 2 and
+             4, and the step tune at ``EXAMPLE_STEP_TUNE`` (started at the
+             script's start beside phase 14 (b)'s cells, and paused with
+             them; it needs no card); each one's key figures parsed
+             from its output; and the attention kernel against its plain
+             version at every shape the engine's waves and the trainer's
+             step give it.
 11. report — one JSON line with each kernel's times (best and default
              configuration, plain version, library call; for a kernel bound
              by bytes a copy_ that moves as many; for nbody the SM clock and
@@ -143,7 +164,8 @@ Then, kernel by kernel (the table ``PORTS``):
              beside the kernels, nbody's issue floor, nbody's variants
              (the j-split's waves, 3 or 4 blocks an SM, its second kernel
              alone) and the transfer phase's results, the dry run's
-             (``dryrun``) and the step tune's (``tune``); the card's name
+             (``dryrun``), the step tune's (``tune``) and the examples'
+             (``examples``); the card's name
              and power limit; and a last line ``{"ok": true, "device":
              {...}}``.
 
@@ -157,6 +179,7 @@ non-zero before printing any result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -304,7 +327,7 @@ SYSTEM_BUDGET = 6
 # measured step tuner's evaluator (its STEPS_TIMED after a warm-up), the
 # measured peak within DRY_PEAK_BAND of the predicted one; (b) production
 # cells through the dry-run CLI with --sites, each (arch, shape, --mesh) a
-# process of its own, started at the phase's start, DRY_SITES reported
+# process of its own, started at the script's start, DRY_SITES reported
 # apart; (c) the kernel against autograd through the plain attention at
 # the tune's shapes (STEP_TUNE_SEQ, each microbatch's batch), then the
 # measured step tune through the tune CLI's entry point at STEP_TUNE_BATCH
@@ -317,15 +340,32 @@ SYSTEM_BUDGET = 6
 DRY_PEAK_BAND = (0.95, 1.05)
 DRY_CELLS = (("qwen2.5-3b", "train_4k", "both"),
              ("qwen2.5-3b", "prefill_32k", "single"),
-             ("qwen2.5-3b", "decode_32k", "single"))
-# the gathered embedding table and the dropless MoE's replicated tokens
-DRY_SITES = ("models/common.py:embed_lookup",
+             ("qwen2.5-3b", "decode_32k", "single"),
+             ("llama4-scout-17b-a16e", "train_4k", "single"),
+             ("llama4-scout-17b-a16e", "prefill_32k", "single"),
+             ("llama4-scout-17b-a16e", "decode_32k", "single"),
+             ("xlstm-125m", "decode_32k", "single"),
+             ("deepseek-v2-236b", "prefill_32k", "single"),
+             ("deepseek-v2-236b", "decode_32k", "single"))
+# the gathered embedding table, the MoE's capacity dispatch and the
+# dropless MoE's replicated tokens
+DRY_SITES = ("models/common.py:embed_lookup", "models/moe.py:moe_apply",
              "models/moe.py:moe_apply_dropless")
 STEP_TUNE_ARCH = "qwen1.5-0.5b"
 STEP_TUNE_BATCH, STEP_TUNE_SEQ = 8, 2048
 STEP_TUNE_TRAIN_SAMPLES, STEP_TUNE_BUDGET = 4, 4
 SHARDING_ARCH = "qwen2.5-3b"
 SHARDING_CONFIGS = (0, 36, 67)
+# phase 15, the examples: each ``examples/torch_*.py`` run as a user runs
+# it, a subprocess from the checkout's root on the card; the step tune
+# (the dry run's counts, no card) cut to EXAMPLE_STEP_TUNE, started at the
+# script's start beside phase 14 (b)'s cells; the trainer cut to
+# EXAMPLE_TRAIN
+EXAMPLE_STEP_TUNE = ("--arch", "qwen1.5-0.5b", "--budget", "2",
+                     "--train-samples", "2")
+EXAMPLE_TRAIN = ("--steps", "4", "--ckpt-every", "2")
+EXAMPLE_TIMEOUT = 600
+QUICKSTART_TOL = 2e-4       # the GEMM's tolerance against its fp32 oracle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1371,12 +1411,9 @@ class _Daemon:
     that a SIGKILL takes its lanes with it), its output read on a thread."""
 
     def __init__(self, args, timeout: float = 180.0):
-        import os
         import threading
 
-        env = dict(os.environ)
-        env["PYTHONPATH"] = str(SRC) + (
-            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        env = _env()
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.daemon", *args],
@@ -2282,9 +2319,7 @@ def phase_serve(hw, device) -> Dict:
     torch.cuda.empty_cache()
 
     # 5. the CLI
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(SRC) + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = _env()
     t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
@@ -2580,9 +2615,7 @@ def _train_runs(workdir: Path) -> Dict:
     import os
     import signal
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(SRC) + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = _env()
     runs = {}
     for name in ("killed", "whole"):
         ckpt = workdir / name
@@ -2916,8 +2949,9 @@ def phase_train(hw, device) -> Dict:
     attention = _attention_train_checks(device, hw, flush)
     del flush
     K.flash_attention.launches = 0
-    step = _train_step_profile(device,
-                               attention["at_train"]["backward_ms"])
+    with quiet("phase 12 (b), the step's seconds and busy share"):
+        step = _train_step_profile(device,
+                                   attention["at_train"]["backward_ms"])
     smoke = _train_smoke_archs(device)
     launches = K.flash_attention.launches
     if launches == 0:
@@ -3047,14 +3081,10 @@ def _system_fleet(hw, workdir: Path) -> Dict:
     subprocess lane on cuda:0: each kernel job measured on the card, the
     sharding and serve jobs priced, one store; each job's trials, best and
     seconds, and the lane's launches of each kernel."""
-    import os
-
     from repro_torch.core import hwspec
     from repro_torch.kernels.registry import BENCHMARKS
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(SRC) + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = _env()
     out_path, store = workdir / "system.json", workdir / "store.json"
     cmd = [sys.executable, "-m", "repro_torch.launch.fleet", "--system",
            SYSTEM_ARCH, "--hw", hwspec.hardware_key(hw), "--budget",
@@ -3101,7 +3131,8 @@ def phase_sharded(hw, device) -> Dict:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    step = _sharded_step(device)
+    with quiet("phase 13 (a), the sharded step's host overhead"):
+        step = _sharded_step(device)
     workdir = ARTIFACT_DIR / "system"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -3207,14 +3238,99 @@ def _dry_vs_card(hw, device) -> Dict:
     return out
 
 
-def _start_cells(workdir: Path):
-    """Phase 14 (b), started: one ``python -m repro_torch.launch.dryrun``
-    process a (arch, shape, --mesh) of DRY_CELLS, all at once."""
+def _env() -> Dict[str, str]:
+    """The environment with the checkout's ``src`` first on PYTHONPATH."""
     import os
 
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+# the card-free work's processes (``start_card_free``), each the leader of
+# its own session, which ``quiet`` pauses; and the seconds it paused them
+# for each figure
+CARD_FREE_PROCS: list = []
+CARD_FREE_PAUSED: Dict[str, float] = {}
+
+
+def start_card_free() -> Dict:
+    """The work that needs no card, started at the script's start so that
+    it runs beside the card's phases, each process at the lowest CPU
+    priority and paused while a host-bound figure is taken (``quiet``):
+    phase 14 (b)'s dry-run cells (``_start_cells``) and phase 15's step
+    tune.  ``stop_card_free`` stops what is left of it."""
+    import shutil
+
+    for sub in ("dryrun", "examples"):
+        shutil.rmtree(ARTIFACT_DIR / sub, ignore_errors=True)
+        (ARTIFACT_DIR / sub).mkdir(parents=True)
+    work = {"cells": _start_cells(ARTIFACT_DIR / "dryrun"),
+            "step_tune": _start_example(
+                "torch_autotune_train_step", EXAMPLE_STEP_TUNE + (
+                    "--out", str(ARTIFACT_DIR / "examples" /
+                                 "step_tune.json")),
+                ARTIFACT_DIR / "examples", _env())}
+    _lowest_priority(work["step_tune"]["proc"].pid)
+    CARD_FREE_PROCS[:] = [proc for _, proc in work["cells"]] \
+        + [work["step_tune"]["proc"]]
+    return work
+
+
+@contextlib.contextmanager
+def quiet(figure: str):
+    """The card-free work paused (SIGSTOP to each live process's session,
+    SIGCONT after) while ``figure``, host-bound, is taken: the host's CPUs
+    are shared, and work beside a decode loop or a step slows it.  The
+    seconds paused go to CARD_FREE_PAUSED."""
+    import os
+    import signal
+
+    stopped = []
+    for proc in CARD_FREE_PROCS:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGSTOP)
+                stopped.append(proc)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        for proc in stopped:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGCONT)
+        CARD_FREE_PAUSED[figure] = time.perf_counter() - t0
+        log(f"[device] the card-free work ({len(stopped)} processes) "
+            f"paused {CARD_FREE_PAUSED[figure]:.1f} s for {figure}")
+
+
+def stop_card_free(work: Dict) -> None:
+    """Kill what is still running of ``start_card_free``'s work."""
+    import os
+    import signal
+
+    for _, proc in work["cells"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    run = work["step_tune"]
+    if run["proc"].poll() is None:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait(timeout=60)
+    run["file"].close()
+
+
+def _lowest_priority(pid: int) -> None:
+    import os
+
+    os.setpriority(os.PRIO_PROCESS, pid, 19)
+
+
+def _start_cells(workdir: Path):
+    """Phase 14 (b), started: one ``python -m repro_torch.launch.dryrun``
+    process a (arch, shape, --mesh) of DRY_CELLS, all at once."""
+    env = _env()
     procs = []
     for arch, shape, mesh in DRY_CELLS:
         out = workdir / f"{arch}-{shape}-{mesh}.jsonl"
@@ -3225,7 +3341,8 @@ def _start_cells(workdir: Path):
                  "--arch", arch, "--shape", shape, "--mesh", mesh, "--out",
                  str(out), "--sites"],
                 stdout=log_file, stderr=subprocess.STDOUT, env=env,
-                cwd=ROOT)))
+                cwd=ROOT, start_new_session=True)))
+        _lowest_priority(procs[-1][1].pid)
     return procs
 
 
@@ -3420,10 +3537,10 @@ def _measured_tune(workdir: Path, device) -> Dict:
             "tolerance": TRAIN_GRAD_TOL}
 
 
-def phase_dryrun(hw, device) -> Dict:
+def phase_dryrun(hw, device, procs) -> Dict:
     """Phase 14: the dry run against the card, production cells through
-    the dry-run CLI, the measured step tune and the compiled sharding
-    backend."""
+    the dry-run CLI (``procs``, started at the script's start), the
+    measured step tune and the compiled sharding backend."""
     import concurrent.futures
     import multiprocessing
     import shutil
@@ -3433,13 +3550,9 @@ def phase_dryrun(hw, device) -> Dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     workdir = ARTIFACT_DIR / "dryrun"
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
     pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
-    procs = []
     try:
-        procs = _start_cells(workdir)
         sharding = pool.submit(_sharding_compiled, SHARDING_CONFIGS)
         dry = _dry_vs_card(hw, device)
         tuned = _measured_tune(workdir, device)
@@ -3466,6 +3579,226 @@ def phase_dryrun(hw, device) -> Dict:
            + tuned["launches_total"],
            "phase_s": time.perf_counter() - t_phase}
     log(f"[time] dryrun {out['phase_s']:.1f} s")
+    return out
+
+
+def _start_example(name: str, args, workdir: Path, env):
+    """``python examples/<name>.py args`` from the checkout's root, in a
+    session of its own, its output to ``workdir/<name>.log``."""
+    log_file = open(workdir / f"{name}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args],
+        cwd=str(ROOT), env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return {"name": name, "proc": proc, "file": log_file,
+            "t0": time.perf_counter()}
+
+
+def _finish_example(run, workdir: Path) -> Tuple[str, float]:
+    """Wait for a started example; its output and the seconds from its
+    start to the end of the wait (its run time where it is awaited as soon
+    as it starts).  Raises on a non-zero exit or after EXAMPLE_TIMEOUT seconds
+    of waiting (its session killed)."""
+    import os
+    import signal
+
+    try:
+        run["proc"].wait(timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+        run["proc"].wait(timeout=60)
+    finally:
+        run["file"].close()
+    seconds = time.perf_counter() - run["t0"]
+    text = (workdir / f"{run['name']}.log").read_text()
+    rc = run["proc"].returncode
+    log(f"[examples] {run['name']}: exit {rc}, {seconds:.1f} s after its "
+        f"start")
+    if rc != 0:
+        raise AssertionError(f"examples: {run['name']} exited {rc}:\n"
+                             + text[-4000:])
+    return text, seconds
+
+
+def _grab(pattern: str, text: str, name: str):
+    import re
+
+    m = re.search(pattern, text, re.M)
+    if m is None:
+        raise AssertionError(f"examples: {name} printed no line matching "
+                             f"{pattern!r}:\n{text[-3000:]}")
+    return m.groups()
+
+
+def _example_module(name: str):
+    """``examples/<name>.py`` imported from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _example_attention(device) -> Dict:
+    """The attention kernel at every shape phase 15's examples give it,
+    held against its plain version within attention's tolerance (these
+    launches are not a main path's): each wave of torch_serve_batch's
+    requests at its slots (the wave's requests, the arch's heads, its
+    longest prompt, the head dim) and torch_train_lm's step (batch, heads,
+    seq, head dim), causal, in fp32 as the model hands them to the kernel,
+    from a seed.  Also the serving waves' count, for its launches."""
+    import inspect
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.attention import kernel as K
+
+    port = next(p for p in PORTS if p.name == "attention")
+    serve = _example_module("torch_serve_batch")
+    slots = inspect.signature(serve.run).parameters["batch_size"].default
+    requests = serve.make_requests()
+    cfg = ARCHS[serve.ARCH]
+    waves = [requests[i:i + slots] for i in range(0, len(requests), slots)]
+    shapes = [("serve_batch", (len(w), cfg.n_heads,
+                               max(len(r.prompt) for r in w),
+                               cfg.eff_head_dim)) for w in waves]
+    cmd = _example_module("torch_train_lm").command()
+    arg = {cmd[i]: cmd[i + 1] for i in range(len(cmd) - 1)}
+    tcfg = ARCHS[arg["--arch"]]
+    shapes.append(("train_lm", (int(arg["--batch"]), tcfg.n_heads,
+                                int(arg["--seq"]), tcfg.eff_head_dim)))
+    gen = torch.Generator(device=device).manual_seed(0)
+    checks = []
+    for example, shape in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   for _ in range(3))
+        got = K.flash_attention(q, k, v, causal=True)
+        ref = K.flash_attention_plain(q, k, v, causal=True)
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        checks.append({"example": example, "shape": list(shape),
+                       "causal": True, "max_abs_err": err,
+                       "max_rel_err": rel, "tolerance": port.tol})
+        log(f"[examples] {example} attention {shape} (causal): kernel vs "
+            f"plain max abs {err:.3e}, rel {rel:.3e} (tolerance "
+            f"{port.tol})")
+        if not rel <= port.tol:
+            raise AssertionError(f"examples: attention {checks[-1]}")
+    return {"checks": checks, "serve_waves": len(waves),
+            "serve_layers": cfg.n_layers}
+
+
+def phase_examples(device, step_tune) -> Dict:
+    """Phase 15: the port's five examples, each as a user runs it (a
+    subprocess from the checkout's root, on the card unless the example
+    needs none), each to exit 0, their key figures parsed from what they
+    print: the quickstart's best configuration, tests and error against
+    the fp32 oracle (within QUICKSTART_TOL, the kernel launched); the
+    serving autotuner's second run at 0 live trials; the engine's tokens/s
+    (the attention kernel launched once a layer a wave); the trainer's
+    last loss and its checkpoints; the step tune's (``step_tune``, started
+    at the script's start) best beside random's.  The attention kernel is
+    held against its plain version at the engine's and the trainer's
+    shapes (``_example_attention``)."""
+    import ast
+    import math
+    import re
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = ARTIFACT_DIR / "examples"
+    env = _env()
+    step_json = workdir / "step_tune.json"
+    ckpt = workdir / "ckpt"
+    out: Dict = {"attention": _example_attention(device)}
+    try:
+        text, sec = _finish_example(
+            _start_example("torch_quickstart", (), workdir, env), workdir)
+        tests, where, us = _grab(r"^best after (\d+) empirical tests "
+                                 r"\(measured on (.+?), \S+\): ([\d.]+) us",
+                                 text, "quickstart")
+        err, rel = _grab(r"max err (\S+) \(relative (\S+),", text,
+                         "quickstart")
+        (launches,) = _grab(r"^GEMM kernel launches: (\d+)", text,
+                            "quickstart")
+        (cfg,) = _grab(r"^best config: (\{.*\})$", text, "quickstart")
+        out["quickstart"] = {
+            "tests": int(tests), "card": where, "best_us": float(us),
+            "best_config": ast.literal_eval(cfg), "max_err": float(err),
+            "rel_err": float(rel), "launches": int(launches), "s": sec}
+        if not (float(rel) <= QUICKSTART_TOL and int(launches) > 0
+                and where == torch.cuda.get_device_name(device)):
+            raise AssertionError(f"examples: quickstart {out['quickstart']}")
+
+        text, sec = _finish_example(
+            _start_example("torch_serve_autotune", (), workdir, env),
+            workdir)
+        (trials,) = _grab(r"^run 2 spent (\d+) live trials total", text,
+                          "serve_autotune")
+        out["serve_autotune"] = {
+            "run1_retunes": text.count("tuned live"),
+            "run2_live_trials": int(trials), "s": sec}
+        if int(trials) != 0 or not text.count("tuned live"):
+            raise AssertionError(f"examples: serve_autotune "
+                                 f"{out['serve_autotune']}")
+
+        with quiet("phase 15, the engine's tokens/s"):
+            text, sec = _finish_example(
+                _start_example("torch_serve_batch", (), workdir, env),
+                workdir)
+        n_tok, secs, rate, card = _grab(
+            r"^(\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s, (.+)\)$", text,
+            "serve_batch")
+        (launches,) = _grab(r"attention kernel launches (\d+)", text,
+                            "serve_batch")
+        requests = re.findall(r"^request \d+: (\[.*\])$", text, re.M)
+        attn = out["attention"]
+        out["serve_batch"] = {
+            "tokens": int(n_tok), "seconds": float(secs),
+            "tok_per_s": float(rate), "card": card,
+            "launches": int(launches),
+            "launches_expected": attn["serve_layers"] * attn["serve_waves"],
+            "s": sec}
+        if not (int(n_tok) == 80 and len(requests) == 10 and all(
+                len(ast.literal_eval(r)) == 8 for r in requests)
+                and int(launches) == out["serve_batch"]["launches_expected"]
+                and card == torch.cuda.get_device_name(device)):
+            raise AssertionError(f"examples: serve_batch "
+                                 f"{out['serve_batch']}")
+
+        text, sec = _finish_example(
+            _start_example("torch_train_lm", EXAMPLE_TRAIN
+                           + ("--ckpt-dir", str(ckpt)), workdir, env),
+            workdir)
+        (loss,) = _grab(r"^\[train\] done: final loss (\S+)$", text,
+                        "train_lm")
+        steps = sorted(p.name for p in ckpt.glob("step_*"))
+        out["train_lm"] = {"final_loss": float(loss), "checkpoints": steps,
+                           "s": sec}
+        if not math.isfinite(float(loss)) or steps != [
+                "step_0000000002", "step_0000000004"]:
+            raise AssertionError(f"examples: train_lm {out['train_lm']}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+        text, sec = _finish_example(step_tune, workdir)
+        rec = json.loads(step_json.read_text())
+        out["step_tune"] = {
+            "space": rec["space"], "train_samples": rec["train_samples"],
+            "budget": rec["budget"], "profile": rec["profile"],
+            "random": rec["random"], "train_best_ms": rec["train_best_ms"],
+            "total_seconds": rec["total_seconds"], "s": sec}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for name, r in out.items():
+        log(f"[examples] {name}: " + json.dumps(r))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] examples {out['phase_s']:.1f} s")
     return out
 
 
@@ -3527,9 +3860,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core import hwspec
-    from repro_torch.core.evaluate import L2_FLUSH_BYTES
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.registry import BENCHMARKS
 
     t_start = time.perf_counter()
     from repro_torch.kernels.attention.kernel import HEAD_DIMS
@@ -3549,6 +3880,22 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # the card-free work, beside every phase: phase 14 (b)'s cells and
+    # phase 15's step tune
+    card_free = start_card_free()
+    try:
+        return _phases(device, name, count, hw, t_start, card_free)
+    finally:
+        stop_card_free(card_free)
+
+
+def _phases(device, name, count, hw, t_start, card_free) -> int:
+    """Phases 2-15 and the report (phase 11)."""
+    import torch
+
+    from repro_torch.core.evaluate import L2_FLUSH_BYTES
+    from repro_torch.kernels.registry import BENCHMARKS
 
     # phase 2: build, and the tensor cores' rate through mma.sync
     hmma, nbody_sass, spill = phase_build()
@@ -3575,10 +3922,12 @@ def main() -> int:
                         hw, device)
 
     # phase 9: the tuning service on the card
-    service = phase_service(records, device)
+    with quiet("phase 9, the service's seconds"):
+        service = phase_service(records, device)
 
     # phase 10: serving on the card
-    serve = phase_serve(hw, device)
+    with quiet("phase 10, qwen2.5-3b's serving"):
+        serve = phase_serve(hw, device)
     serve["service_serve_kind"] = service["serve_kind"]
     serve["zoo"] = phase_serve_zoo(hw, device)
 
@@ -3588,8 +3937,12 @@ def main() -> int:
     # phase 13: the sharded step and the fleet's --system on the card
     sharded = phase_sharded(hw, device)
 
+    # phase 15: the examples, each as a user runs it (before phase 14, so
+    # that phase 14 (b)'s longest cell has ended when it is awaited)
+    examples = phase_examples(device, card_free["step_tune"])
+
     # phase 14: the dry run and step tuning on the card
-    dry = phase_dryrun(hw, device)
+    dry = phase_dryrun(hw, device, card_free["cells"])
 
     # phase 11: report
     t0 = time.perf_counter()
@@ -3665,7 +4018,8 @@ def main() -> int:
               "dryrun": {k: dry[k] for k in ("step", "cells",
                                              "sharding_compiled",
                                              "phase_s")},
-              "tune": dry["tune"],
+              "tune": dry["tune"], "examples": examples,
+              "card_free_paused_s": CARD_FREE_PAUSED,
               "hmma_instructions": hmma, "nbody_sass": nbody_sass,
               "spill_store_bytes": spill,
               "mma_probe": probe, "issue_floors": floors,

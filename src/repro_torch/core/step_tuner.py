@@ -118,14 +118,16 @@ class CompiledStepEvaluator(Evaluator):
     empirical test is the count's real wall-clock (0 on cache hits).  Each
     test times its own count (the shared ``compile_seconds`` total is
     lock-guarded), so an async search loop that overlaps tests charges
-    every test its true cost.
+    every test its true cost.  ``config``, a ``ModelConfig``, is counted
+    under ``arch_name`` in place of the catalog's.
     """
 
     def __init__(self, arch_name: str, shape_name: str,
                  hbm_bytes: float = H100_SXM.dram_bytes,
-                 verbose: bool = True):
+                 verbose: bool = True, config=None):
         super().__init__(make_step_space())
         self.arch_name = arch_name
+        self.config = config
         self.shape_name = shape_name
         self.hbm_bytes = hbm_bytes
         self.verbose = verbose
@@ -137,12 +139,13 @@ class CompiledStepEvaluator(Evaluator):
         from repro_torch.launch import dryrun
 
         rules_override = None if cfg["FSDP"] else {"embed": None}
+        extra = {} if self.config is None else {"config": self.config}
         t0 = time.time()
         rec = dryrun.lower_cell(
             self.arch_name, self.shape_name, multi_pod=False,
             step_overrides=step_overrides(cfg),
             rules_overrides=rules_override,
-            verbose=False,
+            verbose=False, **extra,
         )
         compile_s = time.time() - t0
         with self._lock:

@@ -93,12 +93,25 @@ def index_copy_(buf: torch.Tensor, dim: int, index: torch.Tensor,
     ``dim`` no mesh axis splits, on each rank's local shards (``src`` laid
     out as ``buf`` first, ``index`` whole): torch 2.11's DTensor has no
     rule for ``index_copy_``."""
+    return _index_local("index_copy_", buf, dim, index, src)
+
+
+def index_add_(buf: torch.Tensor, dim: int, index: torch.Tensor,
+               src: torch.Tensor) -> torch.Tensor:
+    """``buf.index_add_(dim, index, src)``, on local shards as
+    ``index_copy_`` is: torch 2.11's DTensor has no rule for
+    ``index_add_``."""
+    return _index_local("index_add_", buf, dim, index, src)
+
+
+def _index_local(op: str, buf: torch.Tensor, dim: int, index: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(buf, DTensor) or any(
             isinstance(p, Shard) and p.dim % buf.dim() == dim % buf.dim()
             for p in buf.placements):
-        return buf.index_copy_(dim, index, src)
+        return getattr(buf, op)(dim, index, src)
     mesh = buf.device_mesh
     if not isinstance(src, DTensor):
         src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
@@ -107,7 +120,7 @@ def index_copy_(buf: torch.Tensor, dim: int, index: torch.Tensor,
     if isinstance(index, DTensor):
         index = index.redistribute(mesh, [Replicate()] * mesh.ndim) \
             ._local_tensor
-    buf._local_tensor.index_copy_(dim, index, src._local_tensor)
+    getattr(buf._local_tensor, op)(dim, index, src._local_tensor)
     return buf
 
 

@@ -216,9 +216,12 @@ def storage_bytes(tree) -> float:
 
 def count_cell(arch_name: str, shape_name: str, multi_pod: bool,
                step_overrides=None, rules_overrides=None,
-               sites: bool = False) -> Tuple[Dict, Optional[OpCount]]:
+               sites: bool = False,
+               config=None) -> Tuple[Dict, Optional[OpCount]]:
     """``lower_cell``'s record and the ``OpCount`` behind it (None for a
-    skipped cell); with ``sites``, the record's ``sites`` too."""
+    skipped cell); with ``sites``, the record's ``sites`` too.  ``config``,
+    a ``ModelConfig``, is counted under ``arch_name`` in place of
+    ``ARCHS[arch_name]``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed.sharding import (batch_shardings,
@@ -229,7 +232,7 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool,
     from repro_torch.train.train_step import on_mesh
 
     mesh_name = "multi" if multi_pod else "single"
-    arch = ARCHS[arch_name]
+    arch = ARCHS[arch_name] if config is None else config
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(arch, shape)
     if not ok:
@@ -308,11 +311,12 @@ def count_cell(arch_name: str, shape_name: str, multi_pod: bool,
 
 def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
                step_overrides=None, rules_overrides=None,
-               verbose: bool = True, sites: bool = False):
+               verbose: bool = True, sites: bool = False, config=None):
     """Count one cell's step on the production mesh; its record (the
-    JAX record's keys and status values, and ``sites`` with ``sites``)."""
+    JAX record's keys and status values, and ``sites`` with ``sites``).
+    ``config`` as in ``count_cell``."""
     rec, count = count_cell(arch_name, shape_name, multi_pod,
-                            step_overrides, rules_overrides, sites)
+                            step_overrides, rules_overrides, sites, config)
     if verbose and count is not None:
         rf, mem = rec["roofline"], rec["memory"]
         print(f"[dryrun] {arch_name} x {shape_name} x {rec['mesh']}: "

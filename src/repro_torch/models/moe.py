@@ -14,7 +14,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.api import shard_act
+from repro_torch.distributed.api import index_add_, shard_act
 from repro_torch.models.common import (ParamDef, Params, dense, mlp_apply,
                                        mlp_defs)
 
@@ -96,12 +96,24 @@ def moe_apply(p: Params, cfg: MoEConfig, x: torch.Tensor
         * torch.einsum("egcd,edf->egcf", xin, p["w_up"])
     yout = torch.einsum("egcf,efd->egcd", h, p["w_down"])     # (E, G, C, D)
 
-    yg = torch.einsum("gtec,egcd->gtd", combine, yout)
+    yg = combine_experts(combine, yout)
 
     out = yg.reshape(b, s, d)
     if cfg.n_shared:
         out = out + mlp_apply(p["shared"], x)
     return out, aux
+
+
+def combine_experts(combine: torch.Tensor, yout: torch.Tensor
+                    ) -> torch.Tensor:
+    """``einsum("gtec,egcd->gtd", combine, yout)`` as one batched product
+    over the (expert, slot) pairs taken expert-major: torch 2.11's DTensor
+    flattens a split dim only where it leads the flattened dims, and the
+    expert dim is the split one (the einsum takes it second)."""
+    g, tg, e, c = combine.shape
+    d = yout.shape[-1]
+    return torch.bmm(combine.reshape(g, tg, e * c),
+                     yout.permute(1, 0, 2, 3).reshape(g, e * c, d))
 
 
 def group_sizes(flat_expert: torch.Tensor, e: int):
@@ -144,8 +156,8 @@ def moe_apply_dropless(p: Params, cfg: MoEConfig,
             start += n
 
     gv = gate_vals.reshape(-1)[order]                         # (T*k,)
-    out = torch.zeros_like(xt, dtype=ys.dtype).index_add_(
-        0, tok_of, ys * gv[:, None].to(ys.dtype))
+    out = index_add_(torch.zeros_like(xt, dtype=ys.dtype), 0, tok_of,
+                     ys * gv[:, None].to(ys.dtype))
     out = out.reshape(b, sq, d).to(x.dtype)
     if cfg.n_shared:
         out = out + mlp_apply(p["shared"], x)

@@ -186,13 +186,24 @@ def _mlstm_decode(p, cfg, x, q, k, v, logi, logf, gate, cache):
     c_new = cache["c"] * f1[:, :, None, None] + torch.einsum(
         "bhd,bhe->bhde", i1[..., None] * vf, kf)
     n_new = cache["n"] * f1[:, :, None] + i1[..., None] * kf
-    num = torch.einsum("bhe,bhde->bhd", qf, c_new)
-    den = torch.einsum("bhe,bhe->bh", qf, n_new)
-    y = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    # the read-out runs on each rank's own batch and heads (``call_local``):
+    # its products fold (batch, heads) into one dim, which torch 2.11's
+    # DTensor refuses where both are split
+    y = call_local(_mlstm_readout, (qf, c_new, n_new),
+                   (("batch", "heads", None), ("batch", "heads", None, None),
+                    ("batch", "heads", None)), ("batch", "heads", None))
     y = y.reshape(b, 1, du).to(x.dtype)
     y = rms_norm(y, p["norm_g"]) * F.silu(gate)
     new_cache = {"c": c_new, "n": n_new, "pos": cache["pos"] + 1}
     return dense(y, p["w_out"]), new_cache
+
+
+def _mlstm_readout(qf: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                   offsets=None) -> torch.Tensor:
+    """The decode step's output from the new state: (C q) / max(|n q|, 1)."""
+    num = torch.einsum("bhe,bhde->bhd", qf, c)
+    den = torch.einsum("bhe,bhe->bh", qf, n)
+    return num / torch.clamp(torch.abs(den), min=1.0)[..., None]
 
 
 def mlstm_init_cache(cfg: XLSTMConfig, batch: int, device=None):

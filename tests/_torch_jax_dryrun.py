@@ -10,10 +10,11 @@ it; so it is imported here, in a process of its own.  The result holds:
 * ``cells``: the SMOKE arch ``ARCH``'s train, prefill and decode cells at
   the small ``SHAPES`` below, on a 2×2 and a 1×1 host mesh (``Auto`` axes:
   jax 0.9's ``make_mesh`` defaults to explicit axes, which the package's
-  sharding constraints do not take); each record with ``dot_flops``, the
-  HLO parser's flops of the dots alone, and ``dense_dot_flops``, of the
-  dots with a rank-2 output alone (the dense layers; the attention's
-  products are batched).
+  sharding constraints do not take), and the SMOKE MoE archs' (``MOE``) on
+  the 2×2 mesh under ``2x2/<arch>/<shape>``; each record with
+  ``dot_flops``, the HLO parser's flops of the dots alone, and
+  ``dense_dot_flops``, of the dots with a rank-2 output alone (the dense
+  layers; the attention's products are batched).
 """
 import json
 import re
@@ -31,6 +32,7 @@ SHAPES = {"train_4k": ShapeConfig("train_4k", 64, 8, "train"),
           "prefill_32k": ShapeConfig("prefill_32k", 128, 4, "prefill"),
           "decode_32k": ShapeConfig("decode_32k", 128, 4, "decode")}
 MESHES = {"2x2": (2, 2), "1x1": (1, 1)}
+MOE = ("deepseek-v2-236b", "llama4-scout-17b-a16e")
 
 # the parser's elementwise kinds, renamed away so that it counts dots alone
 _ELEMENTWISE = ("add", "multiply", "subtract", "divide", "maximum",
@@ -74,11 +76,15 @@ def main():
             lambda multi_pod=False, shape=shape, n=n: jax.make_mesh(
                 shape, ("data", "model"), devices=jax.devices()[:n],
                 axis_types=(jax.sharding.AxisType.Auto,) * 2))
-        for name in SHAPES:
-            rec = dryrun.lower_cell(ARCH, name, False, verbose=False)
+        cells = [(ARCH, name, f"{mesh_name}/{name}") for name in SHAPES]
+        if mesh_name == "2x2":
+            cells += [(arch, name, f"{mesh_name}/{arch}/{name}")
+                      for arch in MOE for name in SHAPES]
+        for arch, name, key in cells:
+            rec = dryrun.lower_cell(arch, name, False, verbose=False)
             rec["dot_flops"] = dots.pop("dot")
             rec["dense_dot_flops"] = dots.pop("dense")
-            out["cells"][f"{mesh_name}/{name}"] = rec
+            out["cells"][key] = rec
     print("RESULT " + json.dumps(out))
 
 

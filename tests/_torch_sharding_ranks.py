@@ -213,3 +213,59 @@ def int8_case(rank: int, path: str, outdir: str) -> None:
     stacked = torch.load(path)
     out = cross_pod_int8_psum({k: v[rank] for k, v in stacked.items()})
     torch.save(out, os.path.join(outdir, f"int8-{rank}.pt"))
+
+
+def local_helpers_case(rank: int, outdir: str) -> None:
+    """On a 2x2 mesh, with integer values (so that a sum in any order is
+    exact): ``api.index_add_`` on a buffer split over "model" along its
+    other dim; the MoE's ``combine_experts`` with the experts over "model"
+    and the embed dim over "data", as the capacity dispatch lays them out;
+    the mLSTM decode's read-out through ``call_local`` on a state split
+    over batch and heads.  Each sharded result made whole beside the
+    unsharded op on the same values."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.api import (activation_sharding,
+                                             call_local, index_add_)
+    from repro_torch.distributed.sharding import make_act_resolver
+    from repro_torch.models import xlstm
+    from repro_torch.models.moe import combine_experts
+
+    mesh = mesh_of((2, 2))
+    g = torch.Generator().manual_seed(0)
+
+    def ints(*shape):
+        return torch.randint(-4, 5, shape, generator=g).float()
+
+    got, want = {}, {}
+    buf, src = ints(8, 6), ints(10, 6)
+    index = torch.randint(0, 8, (10,), generator=g)
+    want["index_add_"] = buf.clone().index_add_(0, index, src)
+    got["index_add_"] = index_add_(
+        distribute_tensor(buf, mesh, [Replicate(), Shard(1)]), 0, index,
+        distribute_tensor(src, mesh, [Shard(0), Replicate()])).full_tensor()
+
+    combine, yout = ints(2, 6, 4, 3), ints(4, 2, 3, 8)
+    want["combine_experts"] = torch.einsum("gtec,egcd->gtd", combine, yout)
+    for name, pl in (("replicated", [Replicate(), Replicate()]),
+                     ("batch over data", [Shard(0), Replicate()])):
+        got[f"combine_experts, combine {name}"] = combine_experts(
+            distribute_tensor(combine, mesh, pl),
+            distribute_tensor(yout, mesh, [Shard(3), Shard(0)])).full_tensor()
+        want[f"combine_experts, combine {name}"] = want["combine_experts"]
+    del want["combine_experts"]
+
+    q, c, n = ints(4, 2, 8), ints(4, 2, 8, 8), ints(4, 2, 8)
+    want["_mlstm_readout"] = xlstm._mlstm_readout(q, c, n)
+    split = [Shard(0), Shard(1)]
+    with activation_sharding(make_act_resolver(mesh,
+                                               default_rules(False))):
+        got["_mlstm_readout"] = call_local(
+            xlstm._mlstm_readout,
+            tuple(distribute_tensor(x, mesh, split) for x in (q, c, n)),
+            (("batch", "heads", None), ("batch", "heads", None, None),
+             ("batch", "heads", None)),
+            ("batch", "heads", None)).full_tensor()
+    if rank == 0:
+        torch.save({k: (got[k], want[k]) for k in want},
+                   os.path.join(outdir, "local_helpers.pt"))

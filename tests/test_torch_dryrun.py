@@ -29,10 +29,26 @@ package's and against hand counts.
   on every rank of the model axis that GSPMD splits (the replicated kv
   projections, the decode logits, the dropless MoE's tokens).  Each cell
   is held to a band of its own around its reading (``MESH_BANDS``).
+* The SMOKE MoE archs' cells on the 2×2 mesh, counted under torch 2.11's
+  DTensor gaps (``tests/_torch_dtensor_211.py``: the card's torch refuses
+  a strict view that flattens a split dim it does not lead, and
+  ``index_add_``), against the JAX dry run: ``model_flops`` equal, the
+  per-device products in a band around each reading (``MOE_BANDS``, the
+  same products as the dense arch's).  They are below the JAX ones, most
+  in training: the two packages split the experts' work differently (the
+  port's capacity dispatch and combine are batched products of its
+  layouts, its dropless MoE multiplies each expert's expected load, where
+  the JAX parser counts XLA's rank-2 dots and ``ragged_dot``); their
+  products in all are held to the JAX dot flops in all the same way
+  (``MOE_ALL_BANDS``).  The capacity combine, the product the gaps
+  changed, is held to its hand count at rank 0's share.  xlstm-125m's
+  decode counts under the gaps too, and the old combine (one ``einsum``)
+  does not.
 * The counts by call site (``OpCounter(sites=True)``) add up to the
   totals, and name the embedding table's gather and the dropless MoE's
   replicated tokens apart.
 """
+import contextlib
 import json
 import math
 import os
@@ -55,6 +71,7 @@ from repro.optim.adamw import AdamW as JAdamW
 from repro.optim.adamw import warmup_cosine as jwarmup
 from repro.roofline import analysis as janalysis
 from repro.train.train_step import abstract_train_state as jabstract_state
+from _torch_dtensor_211 import torch_211_gaps
 from repro_torch.checkpoint.checkpointer import stacked
 from repro_torch.configs import ARCHS, SMOKES
 from repro_torch.core import hwspec
@@ -78,6 +95,23 @@ SMOKE_ARCH = "qwen2.5-3b"
 # the module's docstring)
 MESH_BANDS = {"train_4k": (1.12, 1.14), "prefill_32k": (1.21, 1.23),
               "decode_32k": (1.52, 1.55)}
+MOE_ARCHS = ("deepseek-v2-236b", "llama4-scout-17b-a16e")
+# the same ratio for the MoE archs on the 2x2 mesh, a band around each
+# reading (torch 2.13; the module's docstring says why they are below 1)
+MOE_BANDS = {("deepseek-v2-236b", "train_4k"): (0.68, 0.70),
+             ("deepseek-v2-236b", "prefill_32k"): (0.436, 0.448),
+             ("deepseek-v2-236b", "decode_32k"): (0.70, 0.72),
+             ("llama4-scout-17b-a16e", "train_4k"): (0.087, 0.090),
+             ("llama4-scout-17b-a16e", "prefill_32k"): (0.66, 0.68),
+             ("llama4-scout-17b-a16e", "decode_32k"): (0.82, 0.84)}
+# the port's products in all (its kernel's included) over the JAX dot
+# flops in all, on the same cells, a band around each reading (torch
+# 2.13 under the gaps: deepseek 0.1556 train, 0.2623 prefill; llama4
+# 0.1868, 0.3715); decode's MOE_BANDS already compare all products
+MOE_ALL_BANDS = {("deepseek-v2-236b", "train_4k"): (0.153, 0.158),
+                 ("deepseek-v2-236b", "prefill_32k"): (0.258, 0.266),
+                 ("llama4-scout-17b-a16e", "train_4k"): (0.184, 0.190),
+                 ("llama4-scout-17b-a16e", "prefill_32k"): (0.366, 0.377)}
 
 
 def _jflat(tree, prefix=()):
@@ -388,6 +422,13 @@ def port_dry():
                 for name in SMALL:
                     out[f"{mesh_name}/{name}"] = dryrun.count_cell(
                         SMOKE_ARCH, name, False)
+                if mesh_name != "2x2":
+                    continue
+                with torch_211_gaps():
+                    for arch in MOE_ARCHS:
+                        for name in SMALL:
+                            out[f"2x2/{arch}/{name}"] = dryrun.count_cell(
+                                arch, name, False)
     finally:
         dryrun.ARCHS, dryrun.SHAPES, meshes.production_shape = saved
     return out
@@ -441,6 +482,96 @@ def test_smoke_cells_against_the_jax_dry_run(jax_dry, port_dry, cell):
             assert count.launches["attention"] > 0
             assert count.flops["tf32x3"] > 0
         assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
+    assert not dist.is_initialized()
+
+
+def _products(count, cell, theirs):
+    """The per-device products the JAX ones are held to: the dense
+    layers' (``mm``, ``addmm``) in train and prefill, all in decode."""
+    if cell == "decode_32k":
+        return count.product_flops, theirs["dot_flops"]
+    return (sum(count.product_flops_by_op.get(op, 0.0)
+                for op in ("mm", "addmm")), theirs["dense_dot_flops"])
+
+
+@pytest.mark.parametrize("arch,cell", list(MOE_BANDS),
+                         ids=[f"{a}-{c}" for a, c in MOE_BANDS])
+def test_moe_smoke_cells_against_the_jax_dry_run(jax_dry, port_dry, arch,
+                                                 cell):
+    """Counted under torch 2.11's DTensor gaps (the fixture): ok, the JAX
+    record's ``model_flops``, the per-device products in their band, the
+    peak above the arguments, collectives on the mesh."""
+    rec, count = port_dry[f"2x2/{arch}/{cell}"]
+    theirs = jax_dry["cells"][f"2x2/{arch}/{cell}"]
+    assert rec["status"] == theirs["status"] == "ok"
+    assert rec["roofline"]["model_flops"] \
+        == theirs["roofline"]["model_flops"]
+    ours, ref = _products(count, cell, theirs)
+    lo, hi = MOE_BANDS[arch, cell]
+    assert lo <= ours / ref <= hi, (arch, cell, ours, ref)
+    if cell != "decode_32k":
+        lo, hi = MOE_ALL_BANDS[arch, cell]
+        ratio = count.product_flops / theirs["dot_flops"]
+        assert lo <= ratio <= hi, (arch, cell, ratio)
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
+    assert sum(count.collective_bytes.values()) > 0
+    assert (count.launches.get("attention", 0) > 0) == (
+        arch == "llama4-scout-17b-a16e" and cell != "decode_32k")
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("gaps", [False, True], ids=["2.13", "2.11"])
+def test_the_moe_combine_is_counted_at_rank_0s_share(gaps):
+    """``moe.combine_experts`` at the layouts a SMOKE MoE train cell gives
+    it on the 2x2 mesh (the combine whole, the experts' outputs split by
+    expert over ``model`` and by feature over ``data``): rank 0 multiplies
+    its own experts and features, 2·g·t·(e/2)·c·(d/2) flops, under torch
+    2.11's gaps as under 2.13.  The one ``einsum`` it replaced gathered
+    every expert first, twice the flops (on 2.13; 2.11 refuses it)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.moe import combine_experts
+
+    g, t, e, c, d = 1, 64, 8, 21, 64
+    with fake_mesh((2, 2), ("data", "model")) as mesh, FakeTensorMode(), \
+            torch_211_gaps() if gaps else contextlib.nullcontext():
+        comb = DTensor.from_local(torch.empty(g, t, e, c), mesh,
+                                  [Replicate(), Replicate()],
+                                  run_check=False)
+        yout = DTensor.from_local(torch.empty(e // 2, g, c, d // 2), mesh,
+                                  [Shard(3), Shard(0)], run_check=False)
+        out, count = count_ops(lambda: combine_experts(comb, yout),
+                               track=(comb, yout))
+        assert tuple(out.shape) == (g, t, d)
+        assert count.product_flops_by_op == {
+            "bmm": 2.0 * g * t * (e // 2) * c * (d // 2)}
+        if not gaps:
+            _, old = count_ops(lambda: torch.einsum("gtec,egcd->gtd", comb,
+                                                    yout), track=(comb, yout))
+            assert old.product_flops == 2 * count.product_flops
+    assert not dist.is_initialized()
+
+
+def test_xlstm_decode_counts_under_torch_211s_gaps(monkeypatch):
+    """xlstm-125m's decode (its read-out on local shards) counts on the
+    2x2 fake mesh under the gaps, and a MoE train cell with the combine
+    as one ``einsum`` (the code before) does not: the gaps are live."""
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(dryrun, "ARCHS", dict(SMOKES))
+    monkeypatch.setattr(dryrun, "SHAPES", SMALL)
+    monkeypatch.setattr(meshes, "production_shape",
+                        lambda multi_pod=False: ((2, 2), ("data", "model")))
+    with warnings.catch_warnings(), torch_211_gaps():
+        warnings.simplefilter("ignore")
+        rec, count = dryrun.count_cell("xlstm-125m", "decode_32k", False)
+        assert rec["status"] == "ok" and count.product_flops > 0
+        monkeypatch.setattr(moe, "combine_experts", lambda c, y: torch.einsum(
+            "gtec,egcd->gtd", c, y))
+        with pytest.raises(RuntimeError, match="flatten"):
+            dryrun.count_cell("llama4-scout-17b-a16e", "train_4k", False)
     assert not dist.is_initialized()
 
 

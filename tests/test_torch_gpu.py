@@ -2,7 +2,9 @@
 PyTorch versions on the card, the card evaluator, the fleet and the daemon
 on the card, and serving (the model zoo's SMOKE archs, all ten, on the
 card against the port on the CPU, attention at the models' shapes, the
-engine, the online autotuner's timed waves and the serve CLI).
+engine, the online autotuner's timed waves and the serve CLI), training,
+the sharded step, the dry run and step tuning, and the dry run's cells
+that the card machine's torch (2.11) once refused.
 
 This file imports no JAX, so that it runs where the card is and JAX is not:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  Without a card every
@@ -1264,3 +1266,49 @@ def test_the_measured_step_tune_runs_on_the_card(cuda, smoke_qwen, tmp_path,
     assert rec["best_ms"] == pytest.approx(
         1e3 * min(t["seconds"] for t in rec["tests"]))
     assert A.flash_attention.launches > before and not plain
+
+
+# --- the dry run's cells that torch 2.11's DTensor refused ------------------
+# each (SMOKE arch, cell) on a 2x2 fake mesh, at the sizes of
+# tests/test_torch_dryrun.py; this file runs under the card machine's torch
+DRY_211_CELLS = [(arch, cell) for arch in ("deepseek-v2-236b",
+                                           "llama4-scout-17b-a16e")
+                 for cell in ("train_4k", "prefill_32k", "decode_32k")] \
+    + [("xlstm-125m", "decode_32k")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,cell", DRY_211_CELLS,
+                         ids=[f"{a}-{c}" for a, c in DRY_211_CELLS])
+def test_the_dry_run_counts_the_moe_and_xlstm_decode_cells(cuda, monkeypatch,
+                                                           arch, cell):
+    """The MoE archs' cells and xlstm-125m's decode count on a 2x2 fake
+    mesh under this machine's torch: the MoE's capacity combine as one
+    batched product over expert-major pairs, the dropless MoE's
+    ``index_add_`` and the mLSTM decode's read-out on local shards
+    (``distributed.api``).  Nothing of the card is used: the test is
+    marked so that it runs where the card's torch is."""
+    import warnings
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models.config import ShapeConfig
+
+    shapes = {"train_4k": ShapeConfig("train_4k", 64, 8, "train"),
+              "prefill_32k": ShapeConfig("prefill_32k", 128, 4, "prefill"),
+              "decode_32k": ShapeConfig("decode_32k", 128, 4, "decode")}
+    monkeypatch.setattr(dryrun, "ARCHS", dict(SMOKES))
+    monkeypatch.setattr(dryrun, "SHAPES", shapes)
+    monkeypatch.setattr(meshes, "production_shape",
+                        lambda multi_pod=False: ((2, 2), ("data", "model")))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rec, count = dryrun.count_cell(arch, cell, False)
+    print(f"torch {torch.__version__}: {arch} {cell} products "
+          f"{count.product_flops:.6g}, collective bytes "
+          f"{sum(count.collective_bytes.values()):.6g}, peak "
+          f"{count.peak_bytes:.6g}")
+    assert rec["status"] == "ok" and rec["chips"] == 4
+    assert count.product_flops > 0 and sum(count.collective_bytes.values()) > 0
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]

@@ -15,7 +15,9 @@ from repro_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + EXAMPLES
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, json, pkgutil, sys
@@ -82,6 +84,43 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "attention")
         for part in ("kernel", "ops", "ref", "space")}
     assert expected <= set(names)
+
+
+_BLOCKED_EXAMPLES = r"""
+import importlib.abc, importlib.util, pathlib, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+for path in sys.argv[2:]:
+    spec = importlib.util.spec_from_file_location(pathlib.Path(path).stem,
+                                                  path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    print(pathlib.Path(path).name)
+"""
+
+
+def test_the_examples_import_with_jax_and_repro_blocked():
+    """The port's five examples import (and define ``run`` and ``main``)
+    with jax and the JAX package blocked."""
+    assert [p.name for p in EXAMPLES] == [
+        "torch_autotune_train_step.py", "torch_quickstart.py",
+        "torch_serve_autotune.py", "torch_serve_batch.py",
+        "torch_train_lm.py"]
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_EXAMPLES, str(ROOT / "src"),
+         *map(str, EXAMPLES)], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [p.name for p in EXAMPLES]
+    for path in EXAMPLES:
+        names = {n.name for n in ast.parse(path.read_text()).body
+                 if isinstance(n, ast.FunctionDef)}
+        assert {"run", "main"} <= names, path
 
 
 # a fleet worker (priced) and the fleet CLI (virtual backend), each run with

@@ -11,7 +11,8 @@ On gloo groups of ranks on localhost (``tests/_torch_sharding_ranks.py``):
 ``shard_batch`` gives ``make_batch``'s global batch bit for bit;
 ``cross_pod_int8_psum`` over two ranks equals the JAX function under
 ``jax.vmap(..., axis_name="pod")``, exactly; a checkpoint written under
-2x2 restores under 1x1 and under 2x2 bit for bit.  The sharded step itself
+2x2 restores under 1x1 and under 2x2 bit for bit; the local-shard helpers
+for the ops torch 2.11's DTensor refuses give the unsharded values.  The sharded step itself
 is ``tests/test_torch_sharded_step.py``, the CLI's
 ``tests/test_torch_sharded_cli.py``.
 """
@@ -252,6 +253,18 @@ def test_cross_pod_int8_psum_equals_the_jax_one(tmp_path):
         got = torch.load(tmp_path / f"int8-{rank}.pt")
         for k, v in want.items():
             assert np.array_equal(got[k].numpy(), np.asarray(v)[rank]), k
+
+
+def test_the_local_helpers_equal_the_unsharded_ops_on_a_2x2_mesh(tmp_path):
+    """``api.index_add_``, the MoE's ``combine_experts`` and the mLSTM
+    decode's read-out on local shards (the ops torch 2.11's DTensor
+    refuses: ``index_add_``, and views that flatten a split dim) give
+    the unsharded op's values exactly."""
+    R.run_group(4, 120, R.local_helpers_case, str(tmp_path))
+    pairs = torch.load(tmp_path / "local_helpers.pt")
+    assert len(pairs) == 4
+    for name, (got, want) in pairs.items():
+        assert torch.equal(got, want), name
 
 
 def test_the_sharded_backward_runs_on_the_calling_thread():

@@ -17,7 +17,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              each, all started together, with nvcc's register /
              shared-memory / spill report; the tensor-core (HMMA)
              instructions of each library counted with ``cuobjdump -sass``,
-             none in matmul or attention failing the phase, and nbody's
+             none in matmul or attention failing the phase, as does no
+             wgmma (HGMMA) instruction in matmul, and nbody's
              MUFU, FFMA, FMUL, FADD and LDS instructions; beside them a
              variant of ``nbody.cu`` built for 4 blocks an SM instead of 3
              (timed in phase 11) and a probe of ``conv2d.cu`` with
@@ -681,6 +682,12 @@ def phase_build():
         if port.tensor_cores and hmma[f"{port.name}.cu"] == 0:
             raise AssertionError(f"{port.name}.cu holds no HMMA instruction: "
                                  "its products do not run on the tensor cores")
+    # and wgmma (HGMMA) in the GEMM's 128 x 128 sub-tile
+    hgmma = common.count_sass("matmul.cu", "HGMMA")
+    log(f"[build] HGMMA instructions in matmul.cu: {hgmma}")
+    if hgmma == 0:
+        raise AssertionError("matmul.cu holds no HGMMA instruction: its "
+                             "128 x 128 sub-tile does not run on wgmma")
     # nbody's instruction mix, in the whole library and in each one-lane
     # kernel (BLOCK_I >= 128, the inner loop of 4 bodies x J_UNROLL pairs):
     # a pair is 6 FFMA, 3 FMUL, 3 FADD and one MUFU.RSQ; a denormal fix-up

@@ -197,12 +197,57 @@ def device_lock(device: torch.device) -> threading.Lock:
         return _DEVICE_LOCKS.setdefault(str(device), threading.Lock())
 
 
+class _Gate:
+    """``csrc/gate.cu``: a gate that holds the card before a timed launch
+    until the host has queued the launch and the event that closes its
+    window, so that no timing window holds the card waiting for the host's
+    launch path (the source's header says when it would).  Gates are
+    numbered in one process; opening number n opens every gate up to n."""
+
+    _lock = threading.Lock()
+    _queue = None            # repro_gate(number, stream)
+    _flag = None             # the int that opens them
+    _count = 0
+
+    @classmethod
+    def queue(cls, device: torch.device) -> int:
+        """A gate on ``device``'s current stream; returns its number."""
+        import ctypes
+
+        from repro_torch.kernels import common
+
+        with cls._lock:
+            if cls._queue is None:
+                flag = getattr(common.load_library("gate.cu"),
+                               "repro_gate_flag")
+                flag.restype = ctypes.c_void_p
+                address = flag()
+                if not address:
+                    raise RuntimeError("gate.cu could not map its flag")
+                cls._flag = ctypes.c_int.from_address(address)
+                cls._queue = common.entry("gate.cu", "repro_gate",
+                                          [ctypes.c_int, ctypes.c_void_p])
+            cls._count += 1
+            number = cls._count
+        rc = cls._queue(number, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"gate launch failed: CUDA error {rc}")
+        return number
+
+    @classmethod
+    def open(cls, number: int) -> None:
+        with cls._lock:
+            if cls._flag.value < number:
+                cls._flag.value = number
+
+
 class DeviceKernelEvaluator(Evaluator):
     """Live evaluator on the card: launch a registry kernel and time it.
 
     * runtime — the median of ``reps`` launches, each timed with CUDA events
       around the launch alone, after ``warmup`` launches, with the L2 cache
-      flushed before each;
+      flushed before each; each timed launch is held behind a gate
+      (``_Gate``) until the host has queued it and its closing event;
     * PC_ops — the kernel's workload model ``bench.workload_fn(cfg, inp)``,
       with the hardware-true ``LOCAL_B`` spill of ``costmodel``;
     * PC_stress — each subsystem's modelled busy time over the measured
@@ -255,9 +300,9 @@ class DeviceKernelEvaluator(Evaluator):
 
     def _time_alone(self, cfg: Config) -> float:
         run, args = self.bench.run, self.args
-        for _ in range(self.warmup):
-            run(cfg, *args)
         if self._flush is None:
+            for _ in range(self.warmup):
+                run(cfg, *args)
             times = []
             for _ in range(self.reps):
                 t0 = time.perf_counter()
@@ -265,15 +310,21 @@ class DeviceKernelEvaluator(Evaluator):
                 times.append(time.perf_counter() - t0)
             return float(np.median(times))
         with torch.cuda.device(self.device):
-            events = []
-            for _ in range(self.reps):
-                self._flush.zero_()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+                      for _ in range(self.reps)]
+            for _ in range(self.warmup):
                 run(cfg, *args)
-                end.record()
-                events.append((start, end))
+            for start, end in events:
+                self._flush.zero_()
+                # the card waits here until the window is queued whole
+                gate = _Gate.queue(self.device)
+                try:
+                    start.record()
+                    run(cfg, *args)
+                    end.record()
+                finally:
+                    _Gate.open(gate)
             torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in events])) \
             * 1e-3

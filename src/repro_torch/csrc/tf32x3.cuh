@@ -20,9 +20,10 @@
 // shared memory.  (2) The small parts have to be made by threads in any
 // case, so they pass through registers, where mma.sync reads its operands.
 // (3) An m16 tile fits the skinny GEMM's M = 16 exactly, where wgmma's 64-row
-// tile wastes 48 rows.  If the numbers call for it, a later design can keep
-// big and small parts as separate K-major tiles in shared memory, filled by
-// TMA plus one splitting pass, and issue wgmma from a consumer warpgroup.
+// tile wastes 48 rows.  The GEMM's 128 x 128 sub-tile does take wgmma
+// ("The wgmma path" in matmul.cu): it computes C^T = B^T A^T, so that A,
+// K-major as it lands, is the shared-memory operand, split in place into
+// big and small tiles, and B^T the register operand, split by threads.
 //
 // Fragment layouts of mma.m16n8k8 (PTX ISA), for lane = 4 * g + t
 // (g = lane / 4, t = lane % 4):

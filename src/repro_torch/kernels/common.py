@@ -167,8 +167,12 @@ def entry(source: str, symbol: str, argtypes) -> Callable[..., int]:
 
 def launch(fn: Callable[..., int], device, *args) -> int:
     """Call the C entry ``fn`` with ``args`` and then the current stream of
-    CUDA ``device``; returns its ``cudaError_t``."""
+    CUDA ``device``, with ``device`` the current device (switched to only
+    where it is not: the switch costs the launch path some microseconds);
+    returns its ``cudaError_t``."""
     import torch
 
+    if device.index in (None, torch.cuda.current_device()):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
         return fn(*args, torch.cuda.current_stream(device).cuda_stream)

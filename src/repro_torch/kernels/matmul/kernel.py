@@ -9,7 +9,8 @@ accumulator swept over K in BLOCK_K steps, the K tail masked, and
 The CUDA kernel is ``repro_torch/csrc/matmul.cu``; its header says what
 bounds each shape on the H100 (the tensor cores at 2048³, reading B for
 skinny products) and how it takes fp32-accurate products by 3xTF32
-(``csrc/tf32x3.cuh``) with 128 x 128 sub-tiles fed by a cp.async ring.
+(``csrc/tf32x3.cuh``): 128 x 128 sub-tiles on wgmma fed by TMA where
+``wgmma_path`` holds, else on mma.sync fed by a cp.async ring.
 BLOCK_M, BLOCK_N and LOOP_ORDER change the code path; BLOCK_K is the unit
 of split-K, which shares the K sweep among blocks when the output tiles
 fill less than half of the blocks the card holds at once (``split_count``);
@@ -17,7 +18,9 @@ ACC_F32 is ignored, as the Pallas kernel ignores it.
 
 ``matmul`` launches the kernel for CUDA tensors and raises when the build
 or the launch fails; it takes ``matmul_plain`` only for tensors on the CPU
-(the analogue of Pallas interpret mode, for the tests).
+(the analogue of Pallas interpret mode, for the tests).  ``matmul.launches``
+counts its launches, ``matmul.wgmma_launches`` those that the C entry
+reports it ran on the wgmma path.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ BLOCKS_PER_SM = 2            # blocks an SM holds at once (at most 105 KB of
 _LOOP_ORDERS = {"mnk": 0, "nmk": 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _INT_MAX = 2**31 - 1
+_WGMMA = -1                  # the C entry's return for a launch on wgmma
+_CHUNK = 32                  # the K depth of one staged chunk
 
 
 @functools.cache
@@ -54,6 +59,21 @@ def split_count(m: int, n: int, k: int, block_m: int, block_n: int,
     if want <= 1:
         return 1
     return cdiv(steps, cdiv(steps, want))
+
+
+def wgmma_path(m: int, n: int, k: int, block_m: int, block_n: int,
+               block_k: int, splits: int, aligned: bool = True) -> bool:
+    """Whether ``matmul.cu`` runs the call's 128 x 128 sub-tiles on wgmma
+    and TMA (the C entry decides; this is its rule, for the tests): the
+    sub-tile is 128 x 128, the operands take 16-byte copies (K, N, BLOCK_N
+    and a split's K multiples of 4 floats, both bases 16-byte ``aligned``),
+    M and N at least 128, K positive, and a split's K whole 32-deep
+    chunks."""
+    split_k = cdiv(cdiv(k, block_k), splits) * block_k if splits > 1 else k
+    vec = (k % 4 == 0 and n % 4 == 0 and block_n % 4 == 0
+           and split_k % 4 == 0 and aligned)
+    return (vec and block_m >= 128 and block_n >= 128 and m >= 128
+            and n >= 128 and k > 0 and (splits == 1 or split_k % _CHUNK == 0))
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
@@ -131,13 +151,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
                 None if workspace is None else workspace.data_ptr(),
                 m, n, k, block_m, block_n, block_k, _LOOP_ORDERS[loop_order],
                 splits)
-    if rc != 0:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc} "
-                           f"at {(m, n, k)} with blocks "
-                           f"{(block_m, block_n, block_k)}, {loop_order}, "
-                           f"{splits} splits")
+    if rc:
+        if rc != _WGMMA:
+            raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc} "
+                               f"at {(m, n, k)} with blocks "
+                               f"{(block_m, block_n, block_k)}, {loop_order}, "
+                               f"{splits} splits")
+        matmul.wgmma_launches += 1
     matmul.launches += 1
     return c
 
 
 matmul.launches = 0
+matmul.wgmma_launches = 0

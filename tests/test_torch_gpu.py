@@ -1,10 +1,11 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-PyTorch versions on the card, the card evaluator, the fleet and the daemon
-on the card, and serving (the model zoo's SMOKE archs, all ten, on the
-card against the port on the CPU, attention at the models' shapes, the
-engine, the online autotuner's timed waves and the serve CLI), training,
-the sharded step, the dry run and step tuning, and the dry run's cells
-that the card machine's torch (2.11) once refused.
+PyTorch versions on the card (the GEMM's wgmma path against float64 too,
+and the path each call takes), the card evaluator and its gate, the fleet
+and the daemon on the card, and serving (the model zoo's SMOKE archs, all
+ten, on the card against the port on the CPU, attention at the models'
+shapes, the engine, the online autotuner's timed waves and the serve CLI),
+training, the sharded step, the dry run and step tuning, and the dry run's
+cells that the card machine's torch (2.11) once refused.
 
 This file imports no JAX, so that it runs where the card is and JAX is not:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  Without a card every
@@ -17,8 +18,10 @@ hardware's approximations).  The GEMM and attention take their products by
 3xTF32 on the tensor cores; they are held to the same tolerances against
 their fp32 oracles (TF32 off) at the registry's full sizes too.
 """
+import dataclasses
 import importlib
 import math
+import time
 
 import numpy as np
 import pytest
@@ -101,6 +104,58 @@ def test_cuda_evaluator_times_on_the_card(cuda):
     assert 0 < cs.runtime < 1.0
 
 
+def _card_ms(before, after):
+    torch.cuda.synchronize()
+    return before.elapsed_time(after)
+
+
+@pytest.mark.gpu
+def test_a_gate_holds_the_card_until_the_host_opens_it(cuda):
+    from repro_torch.core.evaluate import _Gate
+
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    first.record()
+    number = _Gate.queue(cuda)
+    last.record()
+    time.sleep(0.02)
+    _Gate.open(number)
+    assert 15.0 < _card_ms(first, last) < 45.0
+
+
+@pytest.mark.gpu
+def test_a_gate_never_opened_lets_the_card_go_after_its_timeout(cuda):
+    from repro_torch.core.evaluate import _Gate
+
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    first.record()
+    number = _Gate.queue(cuda)
+    last.record()
+    waited = _card_ms(first, last)
+    _Gate.open(number)
+    assert 45.0 < waited < 100.0      # gate.cu's kTimeoutNs: 50 ms
+
+
+@pytest.mark.gpu
+def test_the_evaluator_times_the_card_not_a_slow_host(cuda):
+    """A host path of 2 ms a launch (ten times a GEMM at 2048^3) stays out of
+    the evaluator's timing windows: the gate holds the timed launches
+    until all are queued."""
+    bench = BENCHMARKS["matmul"]
+    inp = bench.inputs["2048"]
+    space = S.make_space(inp)
+    idx = space.index_of({"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 128,
+                          "LOOP_ORDER": "mnk", "ACC_F32": 0})
+    fast = DeviceKernelEvaluator(space, bench, inp).measure(idx)
+
+    def slow_run(cfg, *args):
+        time.sleep(0.002)
+        return bench.run(cfg, *args)
+
+    slow_bench = dataclasses.replace(bench, run=slow_run)
+    slow = DeviceKernelEvaluator(space, slow_bench, inp).measure(idx)
+    assert slow < 1.2 * fast
+
+
 @pytest.mark.gpu
 def test_a_refused_launch_raises(cuda, monkeypatch):
     entry = K._entry()
@@ -115,6 +170,70 @@ def test_a_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         K.matmul(a, b)
     assert K.matmul.launches == before
+
+
+# --- the GEMM's 128 x 128 sub-tile on wgmma and TMA ---------------------------
+
+from _torch_matmul_paths import WGMMA_CASES, case_id  # noqa: E402
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose base lies 4 bytes past 16."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.gpu
+def test_the_gemm_holds_hgmma_and_hmma_instructions(cuda):
+    """wgmma (HGMMA) in the 128 x 128 sub-tile's kernel, mma.sync (HMMA) in
+    the 64-wide and unaligned sub-tiles' kernels."""
+    common.load_library(K.SOURCE)
+    assert common.count_sass(K.SOURCE, "HGMMA", "matmul_wgmma_kernel") > 0
+    for sub in ("ILi64ELi64E", "ILi64ELi128E", "ILi128ELi64E", "ILi128ELi128E"):
+        assert common.count_sass(K.SOURCE, "HMMA",
+                                 "matmul_tf32x3_kernel" + sub) > 0, sub
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cfg", [
+    ((2048, 2048, 2048), (128, 128, 128, "mnk")),
+    ((2048, 2048, 2048), (256, 256, 128, "nmk")),     # 4 splits
+    ((2048, 2048, 2048), (512, 512, 1024, "mnk")),    # 2 splits
+    ((1000, 1000, 1000), (128, 128, 128, "nmk")),     # ragged, aligned
+], ids=lambda x: "x".join(map(str, x)))
+def test_the_wgmma_path_meets_the_float64_reference(cuda, shape, cfg):
+    a, b = _inputs(*shape, cuda)
+    before, wgmma = K.matmul.launches, K.matmul.wgmma_launches
+    out = K.matmul(a, b, **_kw(cfg))
+    torch.cuda.synchronize()
+    assert K.matmul.launches == before + 1
+    assert K.matmul.wgmma_launches == wgmma + 1
+    ref = a.double() @ b.double()
+    assert float((out.double() - ref).abs().max() / ref.abs().max()) < TOL
+    # the plain version describes the path: the sums' order alone differs,
+    # 1.6e-5 of max |C| at K = 2048 (each side's own from float64), where
+    # one TF32 pass is 2.8e-4 off
+    plain = K.matmul_plain(a, b, **_kw(cfg))
+    assert float((out - plain).abs().max() / plain.abs().max()) < 5e-5
+    assert torch.equal(K.matmul(a, b, **_kw(cfg)), out)    # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=case_id)
+def test_the_c_entry_takes_the_path_its_rule_gives(cuda, case):
+    (m, n, k), (bm, bn, bk), aligned, takes = case
+    a, b = _inputs(m, n, k, cuda)
+    if not aligned:
+        a, b = _unaligned(a), _unaligned(b)
+    before, wgmma = K.matmul.launches, K.matmul.wgmma_launches
+    out = K.matmul(a, b, **_kw((bm, bn, bk, "mnk")))
+    torch.cuda.synchronize()
+    assert K.matmul.launches == before + 1
+    assert K.matmul.wgmma_launches == wgmma + int(takes)
+    ref = K.matmul_plain(a, b, **_kw((bm, bn, bk, "mnk")))
+    assert float((out - ref).abs().max() / ref.abs().max()) < TOL
 
 
 # The four other paper kernels: (kernel, tolerance, inputs, configs).  Each

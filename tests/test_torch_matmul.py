@@ -22,6 +22,8 @@ from repro_torch.kernels.matmul import space as S
 from repro_torch.kernels.registry import BENCHMARKS
 from repro_torch.tuning import TuningSession
 
+from _torch_matmul_paths import WGMMA_CASES, case_id
+
 TOL = 2e-4
 SHAPES = [(128, 128, 128), (192, 256, 128), (256, 192, 320), (64, 512, 96),
           (100, 200, 300)]
@@ -58,6 +60,49 @@ def test_cpu_matmul_matches_pallas_interpret_and_oracle(shape, cfg):
     oracle = jax_matmul_ref(jnp.asarray(a), jnp.asarray(b))
     assert _rel(ours.numpy(), pallas) < TOL
     assert _rel(ours.numpy(), oracle) < TOL
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=case_id)
+def test_wgmma_path_rule(case):
+    (m, n, k), (bm, bn, bk), aligned, takes = case
+    splits = K.split_count(m, n, k, bm, bn, bk, common.CPU_SMS)
+    assert K.wgmma_path(m, n, k, bm, bn, bk, splits, aligned) is takes
+
+
+@pytest.mark.parametrize("case", [c for c in WGMMA_CASES if c[3]],
+                         ids=case_id)
+def test_plain_version_sums_the_wgmma_paths_splits(case, monkeypatch):
+    """``matmul_plain`` describes the wgmma path beyond fp32 rounding: the
+    three products of the split parts (``tf32x3.product``) over each split's
+    K range, the ranges the C entry gives the splits (whole 32-deep chunks,
+    so that none of the kernel's chunks straddles two), added in split
+    order.  Run on the meta device: only the shapes of the sums matter."""
+    (m, n, k), (bm, bn, bk), _, _ = case
+    calls = []
+    product = K.tf32x3.product
+
+    def record(a, b, acc=None):
+        calls.append((a[0].shape[1], acc is None, len(a), len(b)))
+        return product(a, b, acc)
+
+    monkeypatch.setattr(K.tf32x3, "product", record)
+    a = torch.empty((m, k), device="meta")
+    b = torch.empty((k, n), device="meta")
+    out = K.matmul_plain(a, b, block_m=bm, block_n=bn, block_k=bk)
+    assert out.shape == (m, n)
+    splits = K.split_count(m, n, k, bm, bn, bk, common.CPU_SMS)
+    per = common.cdiv(common.cdiv(k, bk), splits)
+    split_k = per * bk if splits > 1 else k
+    want = [(s * split_k, min(k, (s + 1) * split_k)) for s in range(splits)]
+    ranges, at = [], 0
+    for width, starts, a_parts, b_parts in calls:
+        assert (a_parts, b_parts) == (2, 2)    # big and small of each
+        if starts:
+            ranges.append([at, at])
+        ranges[-1][1] += width
+        at += width
+    assert [tuple(r) for r in ranges] == want
+    assert all(lo % 32 == 0 for lo, _ in want)
 
 
 def test_make_args_draws_the_jax_packages_arrays():

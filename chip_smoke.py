@@ -29,7 +29,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              practical ceiling of both kernels.
 Then, kernel by kernel (the table ``PORTS``):
 3. check   — the kernel against its plain PyTorch version on the card, at
-             every registry input plus a ragged one (and the extra ones),
+             every registry input plus a ragged one (and the extra ones;
+             attention's also at V head dims below q's, among them
+             deepseek-v2-236b's prefill as phase 10 serves it),
              at the smallest and largest tiles and each value of every
              parameter that changes the code path (TF32 off); transpose
              must be exact; every kernel gives the same bits in two
@@ -75,8 +77,13 @@ Then, kernel by kernel (the table ``PORTS``):
              through the kernel and its plain version, and wave 1's logits
              with the model's kernel call patched to the plain version;
              gemma-2b (2 layers) and deepseek-v2-236b (1 layer) at full
-             width; ``OnlineAutotuner`` over ``EngineBackend`` (tune, reuse,
-             drift); ``python -m repro_torch.launch.serve``.  Then the rest
+             width, each layer's prefill attention on the kernel
+             (deepseek-v2-236b's MLA on its (192, 128) instance, counted in
+             ``split_v_launches``), layer 0 and wave 1's logits checked as
+             qwen2.5-3b's and the kernel timed at layer 0's inputs
+             against the bound at D + Dv; ``OnlineAutotuner`` over
+             ``EngineBackend`` (tune, reuse, drift);
+             ``python -m repro_torch.launch.serve``.  Then the rest
              of the model zoo at full width and depth (``phase_serve_zoo``):
              zamba2-2.7b and xlstm-125m through ``ServeEngine`` (8 requests,
              prompts a multiple of 128), seamless-m4t-large-v2 through a
@@ -282,6 +289,10 @@ SERVE_FP32_LOGIT_TOL = 1e-3
 # the head dims the check phase holds attention at beside the registry's:
 # every compiled one, and padded ones between them (1 to 256)
 ATTENTION_CHECK_DIMS = (16, 32, 64, 80, 128, 192, 256, 1, 48, 200)
+# and the (qk, V) head dims it holds attention at with V narrower than q
+# and k: every compiled split pair, one padded to it from each side, and
+# one padded to a D = Dv instance
+ATTENTION_SPLIT_CHECK_DIMS = ((192, 128), (192, 100), (160, 128), (64, 48))
 # phase 12, training: qwen1.5-0.5b at full width and depth (bf16, random
 # weights from seed 0) trains TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
 # tokens through the supervisor CLI, checkpointing every TRAIN_CKPT_EVERY;
@@ -415,6 +426,16 @@ def _attention_pairs(inp) -> float:
     return float(inp.batch * inp.heads * per_head)
 
 
+def _attention_work(inp) -> Tuple[float, float, float, float]:
+    """Attention's work at q and k of head dim D and V of Dv: q, k, v and
+    the output read or written once, 2·D a pair for QKᵀ and 2·Dv for PV."""
+    d = inp.head_dim
+    dv = d if inp.v_head_dim is None else inp.v_head_dim
+    pairs = _attention_pairs(inp)
+    return (8.0 * inp.batch * inp.heads * inp.seq * (d + dv),
+            2.0 * (d + dv) * pairs, pairs, 2.0 * (d + dv) * pairs)
+
+
 def _nbody_issue_floor(inp, hw) -> Tuple[float, str]:
     """12 fp32-pipe instructions a pair, one a lane a clock."""
     from repro_torch.kernels.nbody.kernel import (FP32_INSTRUCTIONS_PER_PAIR,
@@ -502,13 +523,15 @@ PORTS = (
          sweeps=("default",), train="default", default=(256, 256, 1, 1),
          library="F.scaled_dot_product_attention(q, k, v, is_causal=True), "
                  "fp32",
-         work=lambda i: (16.0 * i.batch * i.heads * i.seq * i.head_dim,
-                         4.0 * i.head_dim * _attention_pairs(i),
-                         _attention_pairs(i),
-                         4.0 * i.head_dim * _attention_pairs(i)),
-         wrapper="flash_attention",
+         work=_attention_work, wrapper="flash_attention",
          extra=(("AttentionInput", (1, 2, 777, 128)),) + tuple(
-             ("AttentionInput", (1, 4, 500, d)) for d in ATTENTION_CHECK_DIMS),
+             ("AttentionInput", (1, 4, 500, d)) for d in ATTENTION_CHECK_DIMS)
+         + tuple(("AttentionInput", (1, 4, 500, d, True, 2, dv))
+                 for d, dv in ATTENTION_SPLIT_CHECK_DIMS)
+         # deepseek-v2-236b's MLA prefill as phase 10 serves it: its 128
+         # heads at the longest prompt
+         + (("AttentionInput", (SERVE_BATCH, 128, SERVE_CUT_PROMPT[1], 192,
+                                True, 2, 128)),),
          tensor_cores=True),
 )
 
@@ -1910,7 +1933,8 @@ def _serve_kernel_at(q, k, v, hw, flush, causal: bool = True) -> Dict:
 
     port = next(p for p in PORTS if p.name == "attention")
     b, h, s, d = q.shape
-    inp = AttentionInput(batch=b, heads=h, seq=s, head_dim=d, causal=causal)
+    inp = AttentionInput(batch=b, heads=h, seq=s, head_dim=d, causal=causal,
+                         v_head_dim=None if v.shape[3] == d else v.shape[3])
     out = {"shape": inp.tag, "causal": causal,
            "ms": time_ms(lambda: K.flash_attention(q, k, v, causal=causal),
                          20, flush),
@@ -2263,28 +2287,50 @@ def phase_serve(hw, device) -> Dict:
                                 SERVE_CUT_NEW, ccfg.vocab_size)
         cclock = _WaveClock(ceng)
         K.flash_attention.launches = 0
+        K.flash_attention.split_v_launches = 0
         try:
-            cout = ceng.generate(creqs)
+            with _AttentionRoute() as route:
+                cout = ceng.generate(creqs)
         finally:
             cclock.close()
         claunch = K.flash_attention.launches
+        csplit = K.flash_attention.split_v_launches
         _log_waves(f"{name} ({layers} of {full.n_layers} layers)",
                    cclock.waves)
         _check_tokens(cout, creqs, ccfg.padded_vocab, name)
-        expect = 0 if ccfg.kv_lora_rank else layers * len(cclock.waves)
-        if claunch != expect:
-            raise AssertionError(f"{name}: {claunch} attention launches, "
-                                 f"{expect} expected")
+        expect = layers * len(cclock.waves)
+        if (claunch != expect or route.plain_calls
+                or csplit != (expect if ccfg.kv_lora_rank else 0)):
+            raise AssertionError(f"{name}: {claunch} attention launches "
+                                 f"({csplit} split-V), {expect} expected; "
+                                 f"{route.plain_calls} plain calls")
+        # wave 1's prefill through the plain version too, and the kernel
+        # timed at layer 0's inputs (an MLA arch's on its split instance)
+        cfirst = cclock.first
+        clayer0, clogits, cqkv = _plain_route_check(
+            lambda: cmodel.prefill(cparams, {"tokens": cfirst["tokens"]},
+                                   SERVE_CUT_PROMPT[1] + SERVE_CUT_NEW)[0],
+            cfirst, attn_tol, SERVE_LOGIT_TOL)
+        _log_checks(name, clayer0, clogits)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=device)
+        ctiming = _serve_kernel_at(*cqkv[:3], hw, flush)
         row = {"arch": name, "reduced": f"n_layers {full.n_layers} -> "
                                         f"{layers}",
                "params": cmodel.param_count(), "init_s": init_s,
-               "attention": "plain (MLA)" if ccfg.kv_lora_rank
-               else "kernel", "launches": claunch, "waves": cclock.waves}
+               "attention": "kernel", "launches": claunch,
+               "split_v_launches": csplit, "waves": cclock.waves,
+               "layer0": clayer0, "logits": clogits,
+               "attention_at_serve": ctiming}
         log(f"[serve] {name}: reduced {row['reduced']}, "
             f"{row['params'] / 1e9:.3f} B parameters drawn in {init_s:.2f} "
-            f"s, attention {row['attention']}, {claunch} kernel launches")
+            f"s, attention {row['attention']}, {claunch} kernel launches "
+            f"({csplit} on a split-V instance); at {ctiming['shape']}: "
+            f"kernel {ctiming['ms']:.4f} ms, plain {ctiming['plain_ms']:.4f}"
+            f" ms, bound {ctiming['bound_ms']:.4f} ms "
+            f"({ctiming['bound_unit']})")
         out["reduced"].append(row)
-        del cparams, ceng, cclock, cmodel
+        del cparams, ceng, cclock, cmodel, cfirst, cqkv, flush
         torch.cuda.empty_cache()
     out["launches_total"] = launches + sum(r["launches"]
                                            for r in out["reduced"])
@@ -3870,12 +3916,17 @@ def main() -> int:
     from repro_torch.device import resolve_device
 
     t_start = time.perf_counter()
-    from repro_torch.kernels.attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.attention.kernel import HEAD_DIMS, SPLIT_V_DIMS
 
     missing = sorted(set(HEAD_DIMS) - set(ATTENTION_CHECK_DIMS))
     if missing:
         print(f"chip_smoke: ATTENTION_CHECK_DIMS misses the compiled head "
               f"dims {missing}", file=sys.stderr)
+        return 2
+    missing = sorted(set(SPLIT_V_DIMS) - set(ATTENTION_SPLIT_CHECK_DIMS))
+    if missing:
+        print(f"chip_smoke: ATTENTION_SPLIT_CHECK_DIMS misses the compiled "
+              f"(qk, V) head dims {missing}", file=sys.stderr)
         return 2
 
     # phase 1: device

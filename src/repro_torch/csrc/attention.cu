@@ -1,6 +1,6 @@
 // Causal flash attention for Hopper (sm_90a) on the tensor cores, fp32 in
-// and out: for each of the B*H heads of q, k, v (B, H, S, D),
-//   O = softmax(mask(Q K^T * sm_scale)) V,
+// and out: for each of the B*H heads of q, k (B, H, S, D) and v (B, H, S, DV),
+//   O = softmax(mask(Q K^T * sm_scale)) V, of shape (B, H, S, DV),
 // with the online softmax of FlashAttention: a running row max m, a running
 // denominator l and an output accumulator, all fp32, rescaled by
 // exp(m_old - m_new) as each key tile arrives; O = acc / max(l, 1e-30).
@@ -79,8 +79,19 @@
 // Every parameter changes the code path; none is priced only.  KEEP_P and
 // Q_PREFETCH are templates.
 //
+// V's head dim.  DV <= D is a template of its own: the V tiles are
+// [32][DV + 4], the output accumulators DV / 8 n8 tiles a warp and the
+// output (B, H, S, DV), so a V narrower than q and k is read, multiplied
+// and written at its own width.  DeepSeek-V2's latent attention (MLA) has
+// q and k of 128 + 64 (the rope part) = 192 and V of 128: the instance
+// (192, 128) runs it unpadded, where V padded to 192 would read 1.5x V's
+// bytes and do 1.5x the PV product.  Its shared memory: 92 KB with one K/V
+// stage, 134 KB with two, against 100 and 151 KB at (192, 192), so every
+// configuration of the space launches at it too.
+//
 // Head dims.  D is a template too, compiled at 16, 32, 64, 80, 128, 192 and
-// 256 (the C entry's switch; mma.sync.m16n8k8 reads D in steps of 8).  The
+// 256 with DV = D, and at (D, DV) = (192, 128) (the C entry's switch;
+// mma.sync.m16n8k8 reads D and DV in steps of 8).  The
 // wrapper zero-pads any other D up to 256 to the next compiled one and
 // slices the padding off the output: zero columns of Q and K add nothing to a score,
 // zero columns of V give zero output columns, and sm_scale stays 1/sqrt of
@@ -166,7 +177,7 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[kMT][kKeys / 8][4],
       }
 }
 
-template <int D, bool kKeepP, int kStages>
+template <int D, int DV, bool kKeepP, int kStages>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, int S,
@@ -175,19 +186,22 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kSub = sub_rows(D);
   constexpr int kLd = D + 4;             // row stride: fragment reads hit
                                          // 32 distinct banks at every D
-  constexpr int kTileKV = kKeys * kLd;
+  constexpr int kLdV = DV + 4;
+  constexpr int kTileK = kKeys * kLd;
+  constexpr int kTileV = kKeys * kLdV;
   constexpr int kNS = kKeys / 8;         // n8 tiles of scores a warp
-  constexpr int kNO = D / 8;             // n8 tiles of output a warp
+  constexpr int kNO = DV / 8;            // n8 tiles of output a warp
+  static_assert(DV <= D && DV % 8 == 0, "V's head dim: a multiple of 8, <= D");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                              // [kSub][kLd]
   float* Ks = Qs + kSub * kLd;                   // [kStages][kKeys][kLd]
-  float* Vs = Ks + kStages * kTileKV;            // [kStages][kKeys][kLd]
+  float* Vs = Ks + kStages * kTileK;             // [kStages][kKeys][kLdV]
 
-  const size_t head = static_cast<size_t>(blockIdx.x) * S * D;
-  q += head;
-  k += head;
-  v += head;
-  o += head;
+  const size_t head = static_cast<size_t>(blockIdx.x) * S;
+  q += head * D;
+  k += head * D;
+  v += head * DV;
+  o += head * DV;
   const int qb = gridDim.y - 1 - blockIdx.y;     // heaviest blocks first
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -209,10 +223,10 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                     // the last sub-tile's reads are done
     load_tile<D, kSub>(Qs, q, q0, S);
     load_tile<D, kKeys>(Ks, k, 0, S);
-    if (kStages == 2) load_tile<D, kKeys>(Vs, v, 0, S);
+    if (kStages == 2) load_tile<DV, kKeys>(Vs, v, 0, S);
     async_copy::cp_async_commit();
     if (kStages == 1) {
-      load_tile<D, kKeys>(Vs, v, 0, S);
+      load_tile<DV, kKeys>(Vs, v, 0, S);
       async_copy::cp_async_commit();
     }
 
@@ -233,14 +247,14 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int it = 0; it < n_kv; ++it) {
       const int kv0 = it * kKeys;
       const int stage = kStages == 2 ? (it & 1) : 0;
-      const float* Kt = Ks + stage * kTileKV;
-      const float* Vt = Vs + stage * kTileKV;
+      const float* Kt = Ks + stage * kTileK;
+      const float* Vt = Vs + stage * kTileV;
 
       if (kStages == 2) {
         __syncthreads();                 // the buffers to be refilled are free
         if (it + 1 < n_kv) {
-          load_tile<D, kKeys>(Ks + (stage ^ 1) * kTileKV, k, kv0 + kKeys, S);
-          load_tile<D, kKeys>(Vs + (stage ^ 1) * kTileKV, v, kv0 + kKeys, S);
+          load_tile<D, kKeys>(Ks + (stage ^ 1) * kTileK, k, kv0 + kKeys, S);
+          load_tile<DV, kKeys>(Vs + (stage ^ 1) * kTileV, v, kv0 + kKeys, S);
         }
         async_copy::cp_async_commit();
       }
@@ -338,17 +352,18 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
             p[e] = kKeepP ? s[i][j][e] : __expf(s[i][j][e] - m[i][e >> 1]);
           pa[i] = tf32x3::split_a(p[0], p[2], p[1], p[3]);
         }
-        const float* v0 = Vt + (8 * j + 2 * t) * kLd + g;
+        const float* v0 = Vt + (8 * j + 2 * t) * kLdV + g;
 #pragma unroll
         for (int c = 0; c < kNO; ++c) {
-          const tf32x3::FragB vb = tf32x3::split_b(v0[8 * c], v0[kLd + 8 * c]);
+          const tf32x3::FragB vb =
+              tf32x3::split_b(v0[8 * c], v0[kLdV + 8 * c]);
 #pragma unroll
           for (int i = 0; i < kMT; ++i) tf32x3::mma3(acc[i][c], pa[i], vb);
         }
       }
       if (kStages == 1) {
         __syncthreads();                 // every warp is done with V
-        if (it + 1 < n_kv) load_tile<D, kKeys>(Vs, v, kv0 + kKeys, S);
+        if (it + 1 < n_kv) load_tile<DV, kKeys>(Vs, v, kv0 + kKeys, S);
         async_copy::cp_async_commit();
       }
     }
@@ -360,7 +375,7 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int row = row0 + 16 * i + 8 * r;
         const float den = fmaxf(sum4(l[i][r]), 1e-30f);
         if (row >= q_end) continue;      // past S, or the next block's row
-        float* dst = o + static_cast<size_t>(row) * D + 2 * t;
+        float* dst = o + static_cast<size_t>(row) * DV + 2 * t;
 #pragma unroll
         for (int c = 0; c < kNO; ++c)
           *reinterpret_cast<float2*>(dst + 8 * c) =
@@ -369,13 +384,15 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, bool kKeepP, int kStages>
+template <int D, int DV, bool kKeepP, int kStages>
 int launch(const float* q, const float* k, const float* v, float* o, int bh,
            int s, int block_q, int block_k, int causal, float sm_scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (D + 4) *
-                      (static_cast<size_t>(sub_rows(D)) + 2 * kStages * kKeys);
-  auto kernel = flash_tf32x3_kernel<D, kKeepP, kStages>;
+  const size_t smem =
+      sizeof(float) * ((D + 4) * (static_cast<size_t>(sub_rows(D)) +
+                                  kStages * kKeys) +
+                       (DV + 4) * static_cast<size_t>(kStages * kKeys));
+  auto kernel = flash_tf32x3_kernel<D, DV, kKeepP, kStages>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -387,30 +404,30 @@ int launch(const float* q, const float* k, const float* v, float* o, int bh,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int dispatch(const float* q, const float* k, const float* v, float* o,
              int bh, int s, int block_q, int block_k, int keep_p,
              int q_prefetch, int causal, float sm_scale,
              cudaStream_t stream) {
   if (keep_p) {
     return q_prefetch == 2
-        ? launch<D, true, 2>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream)
-        : launch<D, true, 1>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream);
+        ? launch<D, DV, true, 2>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream)
+        : launch<D, DV, true, 1>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream);
   }
   return q_prefetch == 2
-      ? launch<D, false, 2>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream)
-      : launch<D, false, 1>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream);
+      ? launch<D, DV, false, 2>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream)
+      : launch<D, DV, false, 1>(q, k, v, o, bh, s, block_q, block_k, causal, sm_scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s, d) fp32, contiguous, 16-byte aligned; d is one of the
-// compiled head dims (16, 32, 64, 80, 128, 192, 256: the wrapper pads any
-// other); block_q and block_k are multiples of 64.  Returns a cudaError_t as
-// int.
+// q, k: (bh, s, d), v, o: (bh, s, dv), fp32, contiguous, 16-byte aligned;
+// (d, dv) is a compiled pair: dv = d at the compiled head dims (16, 32, 64,
+// 80, 128, 192, 256), or (192, 128) (the wrapper pads any other); block_q
+// and block_k are multiples of 64.  Returns a cudaError_t as int.
 extern "C" int repro_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int bh, int s,
-                                   int d, int block_q, int block_k,
+                                   int d, int dv, int block_q, int block_k,
                                    int keep_p, int q_prefetch, int causal,
                                    float sm_scale, void* stream) {
   if (bh <= 0 || s <= 0 || block_q <= 0 ||
@@ -421,10 +438,17 @@ extern "C" int repro_attention_f32(const float* q, const float* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ATTENTION_SPLIT_V(D, DV)                                   \
+  if (d == D && dv == DV)                                                \
+    return dispatch<D, DV>(q, k, v, o, bh, s, block_q, block_k, keep_p,  \
+                           q_prefetch, causal, sm_scale, st);
+  REPRO_ATTENTION_SPLIT_V(192, 128)
+#undef REPRO_ATTENTION_SPLIT_V
+  if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_ATTENTION_D(D)                                             \
   case D:                                                                \
-    return dispatch<D>(q, k, v, o, bh, s, block_q, block_k, keep_p,      \
-                       q_prefetch, causal, sm_scale, st);
+    return dispatch<D, D>(q, k, v, o, bh, s, block_q, block_k, keep_p,   \
+                          q_prefetch, causal, sm_scale, st);
   switch (d) {
     REPRO_ATTENTION_D(16)
     REPRO_ATTENTION_D(32)

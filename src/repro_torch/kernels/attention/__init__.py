@@ -11,14 +11,16 @@ from repro_torch.kernels.registry import KernelBenchmark, register_benchmark
 
 
 def _make_args(inp, rng, device):
-    """The JAX package's q, k and v, draw for draw, moved to ``device``."""
+    """The JAX package's q, k and v, draw for draw, moved to ``device``; v
+    at ``inp.v_head_dim`` where it is set."""
     shape = (inp.batch, inp.heads, inp.seq, inp.head_dim)
+    dv = inp.head_dim if inp.v_head_dim is None else inp.v_head_dim
 
-    def mk():
+    def mk(shape):
         return torch.from_numpy(
             rng.standard_normal(shape, dtype=np.float32) * 0.3).to(device)
 
-    return (mk(), mk(), mk())
+    return (mk(shape), mk(shape), mk(shape[:3] + (dv,)))
 
 
 @register_benchmark("attention")

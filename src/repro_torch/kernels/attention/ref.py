@@ -8,7 +8,7 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """q, k, v: (..., S, D)."""
+    """q, k: (..., S, D); v: (..., S, Dv); scale 1/√D."""
     d = q.shape[-1]
     s = torch.einsum("...qd,...kd->...qk", q, k).float() / (d ** 0.5)
     if causal:

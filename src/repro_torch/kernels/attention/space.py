@@ -6,11 +6,17 @@ model keeps its TPU-shaped terms ((8, 128) register tiling of the
 (BLOCK_Q, BLOCK_K) score tile, whole BLOCK tiles as the working set) and
 prices 2-byte elements (``AttentionInput.dtype_bytes = 2``) although the
 registry runs fp32; both are carried as they are (ROADMAP.md, queue 3).
+
+``AttentionInput.v_head_dim`` is the port's own: V's head dim where it is
+not q's (DeepSeek-V2's latent attention, 192 and 128).  Set, the model
+prices the PV product, V's reads, the output's writes and the working set
+at it; unset (None), the input, its tag and every number of the model are
+the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.core import counters as C
 from repro_torch.core.tuning_space import Config, TuningParameter, TuningSpace
@@ -25,10 +31,12 @@ class AttentionInput:
     head_dim: int
     causal: bool = True
     dtype_bytes: int = 2
+    v_head_dim: Optional[int] = None     # None: head_dim
 
     @property
     def tag(self) -> str:
-        return f"b{self.batch}h{self.heads}s{self.seq}d{self.head_dim}"
+        tag = f"b{self.batch}h{self.heads}s{self.seq}d{self.head_dim}"
+        return tag if self.v_head_dim is None else f"{tag}v{self.v_head_dim}"
 
 
 DEFAULT_INPUT = AttentionInput(4, 16, 4096, 128)
@@ -47,6 +55,7 @@ def make_space() -> TuningSpace:
 
 def workload_fn(cfg: Config, inp: AttentionInput = DEFAULT_INPUT) -> Dict[str, float]:
     b, h, s, d, db = inp.batch, inp.heads, inp.seq, inp.head_dim, inp.dtype_bytes
+    dv = d if inp.v_head_dim is None else inp.v_head_dim
     bq, bk = cfg["BLOCK_Q"], cfg["BLOCK_K"]
     keep_p, depth = cfg["KEEP_P"], cfg["Q_PREFETCH"]
     nq, nk = cdiv(s, bq), cdiv(s, bk)
@@ -54,15 +63,17 @@ def workload_fn(cfg: Config, inp: AttentionInput = DEFAULT_INPUT) -> Dict[str, f
     causal_f = 0.5 if inp.causal else 1.0
 
     visited = heads * nq * nk * causal_f + heads * nq * 0.5  # diagonal blocks
-    flops = visited * (2.0 * bq * bk * d) * 2.0              # QK^T + PV
+    flops = visited * (2.0 * bq * bk) * (d + dv)             # QK^T + PV
     trans = visited * bq * bk                                 # exp
     vpu = visited * bq * bk * 6.0                             # max/sum/scale
-    hbm_rd = heads * (s * d * db + nq * (2.0 * nk * causal_f + 1) * bk * d * db)
-    hbm_wr = heads * s * d * db
-    vmem_rd = visited * (bq * d + 2 * bk * d + bq * bk * (2 if keep_p else 3)) * db
-    vmem_wr = visited * (bq * bk + bq * d) * 4.0
-    ws = (bq * d * db * depth + 2 * bk * d * db * 2
-          + bq * d * 4.0 + (bq * bk * 4.0 if keep_p else 0.0) + bq * 8.0)
+    hbm_rd = heads * (s * d * db
+                      + nq * (nk * causal_f + 0.5) * bk * (d + dv) * db)
+    hbm_wr = heads * s * dv * db
+    vmem_rd = visited * (bq * d + bk * (d + dv)
+                         + bq * bk * (2 if keep_p else 3)) * db
+    vmem_wr = visited * (bq * bk + bq * dv) * 4.0
+    ws = (bq * d * db * depth + bk * (d + dv) * db * 2
+          + bq * dv * 4.0 + (bq * bk * 4.0 if keep_p else 0.0) + bq * 8.0)
 
     tile_eff = (bq / round_up(bq, 8)) * (bk / round_up(bk, 128))
     edge_eff = (s / (nq * bq)) * (s / (nk * bk))

@@ -3,16 +3,19 @@ MLA (multi-head latent attention with a compressed KV cache), in PyTorch.
 
 The JAX package's ``repro.models.attention`` carried over.  There, prefill
 and training compute attention in plain JAX and name the Pallas kernel as
-the TPU drop-in; here GQA prefill and training go through the port's
-hand-written kernel (``repro_torch.kernels.attention.kernel.flash_attention``,
+the TPU drop-in; here GQA and MLA prefill and training go through the
+port's hand-written kernel
+(``repro_torch.kernels.attention.kernel.flash_attention``,
 ``csrc/attention.cu``), causal or not as the config says (an encoder's
 self-attention is not; RoPE is applied there too, as in JAX): q as
 (B, H, S, D), K and V repeated from the kv heads to H heads (query head j
 reads kv head j // (H / Hkv), the JAX package's ``(b, s, hkv, rep, d)``
 order), all cast to fp32, scale 1/sqrt(D), the kernel's default
-parameters, and the output cast back to the model's dtype.  The wrapper
-takes its plain version only for CPU tensors; on the card a kernel that
-fails to build or launch raises.
+parameters, and the output cast back to the model's dtype.  MLA's q and K
+are its [nope | rope] concatenations (192 at DeepSeek-V2's widths) and its
+V keeps its own head dim (128), which the kernel takes unpadded.  The
+wrapper takes its plain version only for CPU tensors; on the card a kernel
+that fails to build or launch raises.
 
 Training differentiates through ``KernelAttention``: its forward is the
 kernel, its backward recomputes the attention in plain PyTorch from the
@@ -23,12 +26,13 @@ of K and V over the kv heads and the fp32 casts stay outside the
 Function; autograd carries their gradients back to the kv heads and the
 model's dtype.
 
-MLA prefill (V's head dim differs from the qk dim), cross-attention (its
-query length differs from its key length, and the kernel takes one S for
-q, k and v: ``chunked_attention``, JAX's ``_chunked_attention`` with
-``causal=False``) and both decode paths stay plain PyTorch, as the JAX
-package computes them: decode is the dense matvec over the cache, operands
-cast to fp32 where JAX accumulates in fp32 (``preferred_element_type``).
+Cross-attention (its query length differs from its key length, and the
+kernel takes one S for q, k and v: ``chunked_attention``, JAX's
+``_chunked_attention`` with ``causal=False``) and both decode paths (GQA's
+and MLA's absorbed one over the latent cache) stay plain PyTorch, as the
+JAX package computes them: decode is the dense matvec over the cache,
+operands cast to fp32 where JAX accumulates in fp32
+(``preferred_element_type``).
 
 Cache layout (GQA):   {"k": (B, S_max, Hkv, D), "v": ..., "pos": int32}
 Cache layout (MLA):   {"c_kv": (B, S_max, R), "k_rope": (B, S_max, Dr)}
@@ -46,8 +50,8 @@ from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.models.common import ParamDef, Params, apply_rope, dense
 
 NEG_INF = -1e30
-# plain attention (MLA prefill): query rows a chunk, bounding the
-# (B, H, rows, S) scores
+# plain causal attention (the kernel's backward recompute): query rows a
+# chunk, bounding the (B, H, rows, S) scores
 PLAIN_Q_CHUNK = 1024
 # plain non-causal attention (cross-attention): keys a chunk, the JAX
 # package's kv_chunk
@@ -87,8 +91,9 @@ def gqa_defs(cfg: AttnConfig) -> Dict[str, ParamDef]:
 
 
 class KernelAttention(torch.autograd.Function):
-    """Attention of fp32 (B, H, S, D) q, k, v, K and V already repeated to
-    H heads: the hand-written kernel forward; backward, the plain model
+    """Attention of fp32 (B, H, S, D) q and k and (B, H, S, Dv) v, K and V
+    already repeated to H heads: the hand-written kernel forward; backward,
+    the plain model
     attention recomputed from the saved q, k, v and differentiated
     (causal: ``plain_causal_attention`` over query chunks of ``chunk``
     rows; not causal: ``chunked_attention`` over key chunks of
@@ -118,9 +123,10 @@ class KernelAttention(torch.autograd.Function):
 def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = True,
                      chunk: int = KV_CHUNK) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D) through the
-    hand-written kernel (``KernelAttention``), causal or not; (B, S, H, D)
-    in q's dtype.  ``chunk`` is the backward's plain recompute's."""
+    """Attention of q (B, S, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv,
+    Dv) through the hand-written kernel (``KernelAttention``), causal or
+    not; (B, S, H, Dv) in q's dtype.  ``chunk`` is the backward's plain
+    recompute's."""
     h, hkv = q.shape[2], k.shape[2]
     rep = h // hkv
     qh = q.transpose(1, 2).float().contiguous()
@@ -336,8 +342,9 @@ def mla_apply(
 ) -> Tuple[torch.Tensor, Dict]:
     """Prefill (``cache is None``): returns (y, {"c_kv", "k_rope"}), the
     latent and the roped shared key for the caller's cache, the attention
-    ``kv_chunk`` query rows at a time.  Decode: returns (y, {"c_kv_new",
-    "k_rope_new"})."""
+    through the kernel (``kernel_attention``: q and K at hd + dr, V at dv;
+    ``kv_chunk`` query rows a chunk in its backward's plain recompute).
+    Decode: returns (y, {"c_kv_new", "k_rope_new"})."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
@@ -358,8 +365,8 @@ def mla_apply(
         # concatenated effective head dims: [nope | rope]
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope_r.expand(b, s, h, dr)], dim=-1)
-        out = attend_heads(plain_causal_attention, q_full, k_full, v,
-                           chunk=kv_chunk)
+        out = attend_heads(kernel_attention, q_full, k_full, v,
+                           causal=True, chunk=kv_chunk)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope_r[:, :, 0, :]}
     else:
         pos = cache["pos"]

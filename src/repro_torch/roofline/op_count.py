@@ -419,7 +419,8 @@ class OpCounter(TorchDispatchMode):
 
             kernel = _KERNELS[name]
             c.launches[kernel] = c.launches.get(kernel, 0) + 1
-            f = attention_flops(tuple(args[0].shape), bool(args[7]))
+            f = attention_flops(tuple(args[0].shape), bool(args[7]),
+                                args[2].shape[-1])
             c.flops["tf32x3"] += f
             self._product(name, f)
             return

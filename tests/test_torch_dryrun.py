@@ -106,10 +106,12 @@ MOE_BANDS = {("deepseek-v2-236b", "train_4k"): (0.68, 0.70),
              ("llama4-scout-17b-a16e", "decode_32k"): (0.82, 0.84)}
 # the port's products in all (its kernel's included) over the JAX dot
 # flops in all, on the same cells, a band around each reading (torch
-# 2.13 under the gaps: deepseek 0.1556 train, 0.2623 prefill; llama4
-# 0.1868, 0.3715); decode's MOE_BANDS already compare all products
-MOE_ALL_BANDS = {("deepseek-v2-236b", "train_4k"): (0.153, 0.158),
-                 ("deepseek-v2-236b", "prefill_32k"): (0.258, 0.266),
+# 2.13 under the gaps: deepseek 0.1599 train, 0.2486 prefill, since its
+# MLA prefill runs the kernel and counts the kernel's causal pairs at its
+# padded head dims; llama4 0.1868, 0.3715); decode's MOE_BANDS already
+# compare all products
+MOE_ALL_BANDS = {("deepseek-v2-236b", "train_4k"): (0.157, 0.163),
+                 ("deepseek-v2-236b", "prefill_32k"): (0.244, 0.253),
                  ("llama4-scout-17b-a16e", "train_4k"): (0.184, 0.190),
                  ("llama4-scout-17b-a16e", "prefill_32k"): (0.366, 0.377)}
 
@@ -515,8 +517,8 @@ def test_moe_smoke_cells_against_the_jax_dry_run(jax_dry, port_dry, arch,
         assert lo <= ratio <= hi, (arch, cell, ratio)
     assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
     assert sum(count.collective_bytes.values()) > 0
-    assert (count.launches.get("attention", 0) > 0) == (
-        arch == "llama4-scout-17b-a16e" and cell != "decode_32k")
+    # GQA (llama4) and MLA (deepseek) prefill and training run the kernel
+    assert (count.launches.get("attention", 0) > 0) == (cell != "decode_32k")
     assert not dist.is_initialized()
 
 

@@ -390,11 +390,14 @@ def test_attention_never_reaches_the_plain_version(cuda, monkeypatch):
 @pytest.mark.gpu
 def test_a_refused_attention_launch_raises(cuda, monkeypatch):
     entry = A._entry()
-    assert entry(None, None, None, None, 1, 64, 64, 96, 64, 1, 1, 1, 1.0,
-                 None) != 0
-    # a head dim that is not compiled (the wrapper pads it)
-    assert entry(None, None, None, None, 1, 64, 24, 64, 64, 1, 1, 1, 1.0,
-                 None) != 0
+    assert entry(None, None, None, None, 1, 64, 64, 64, 96, 64, 1, 1, 1,
+                 1.0, None) != 0
+    # a head dim that is not compiled (the wrapper pads it), and a V head
+    # dim that is not compiled beside its D
+    assert entry(None, None, None, None, 1, 64, 24, 24, 64, 64, 1, 1, 1,
+                 1.0, None) != 0
+    assert entry(None, None, None, None, 1, 64, 128, 64, 64, 64, 1, 1, 1,
+                 1.0, None) != 0
     monkeypatch.setattr(A, "_entry", lambda: (lambda *args: 1))
     before = A.flash_attention.launches
     with pytest.raises(RuntimeError, match="CUDA error 1"):
@@ -423,6 +426,108 @@ def test_attention_takes_every_head_dim(cuda, d):
         assert out.shape == ref.shape and bool(out.isfinite().all())
         err = float((out - ref).abs().max() / ref.abs().max())
         assert err < ATTENTION_TOL, (cfg, err)
+
+
+# DeepSeek-V2's latent attention: qk 192, V 128 (the split instance), at a
+# small S and at the benchmark cell's input (one 2048-token chunk of the
+# 16 heads an 8-way tensor-parallel card holds); against float64, within
+# the cell's kernel_rel_err limit
+MLA_SHAPES = [(1, 2, 200, 192, 128), (1, 16, 2048, 192, 128)]
+MLA_TOL = 2e-5
+
+
+def _softmax_v64(q, k, v, causal=True):
+    """softmax(q kᵀ / √D) v in float64, one batch row at a time."""
+    out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
+    s = q.shape[2]
+    later = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    for i in range(q.shape[0]):
+        sc = q[i].double() @ k[i].double().transpose(-1, -2) \
+            / q.shape[-1] ** 0.5
+        if causal:
+            sc = sc.masked_fill(later, float("-inf"))
+        out[i] = torch.softmax(sc, dim=-1) @ v[i].double()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MLA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mla_attention_at_every_configuration_against_float64(cuda, shape,
+                                                              monkeypatch):
+    """Every configuration of the space launches the (192, 128) instance,
+    V unpadded, each launch counted as a split-V launch, and meets softmax
+    V in float64; the plain version never runs."""
+    monkeypatch.setattr(A, "flash_attention_plain", lambda *a, **k: (
+        _ for _ in ()).throw(AssertionError("plain version on the card")))
+    inp = AttentionInput(*shape[:4], v_head_dim=shape[4])
+    q, k, v = BENCHMARKS["attention"].make_args(
+        inp, np.random.default_rng(1), cuda)
+    assert v.shape[-1] == 128
+    for causal in ((True, False) if shape[2] < 1000 else (True,)):
+        ref = _softmax_v64(q, k, v, causal)
+        for cfg in BENCHMARKS["attention"].make_space():
+            launches = A.flash_attention.launches
+            split = A.flash_attention.split_v_launches
+            out = A.flash_attention(q, k, v, causal=causal,
+                                    **_attention_kw(tuple(cfg.values())))
+            torch.cuda.synchronize()
+            assert A.flash_attention.launches == launches + 1
+            assert A.flash_attention.split_v_launches == split + 1
+            assert out.shape == v.shape
+            err = float((out.double() - ref).abs().max() / ref.abs().max())
+            assert err < MLA_TOL, (cfg, causal, err)
+
+
+@pytest.mark.gpu
+def test_mla_attention_names_its_instance_in_the_device_trace(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = BENCHMARKS["attention"].make_args(
+        AttentionInput(1, 2, 256, 192, v_head_dim=128),
+        np.random.default_rng(0), cuda)
+    A.flash_attention(q, k, v)                       # built and warm
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.flash_attention(q, k, v)
+        A.flash_attention(q, k, v[..., :100].contiguous())    # padded to 128
+        A.flash_attention(q, k, torch.nn.functional.pad(v, (0, 64)))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if "flash_tf32x3_kernel" in e.name]
+    assert sum("flash_tf32x3_kernel<192, 128," in n for n in names) == 2
+    assert sum("flash_tf32x3_kernel<192, 192," in n for n in names) == 1
+
+
+@pytest.mark.gpu
+def test_mla_layer_at_deepseek_v2_widths_meets_the_reference(cuda):
+    """One MLA layer at DeepSeek-V2's published widths (d_model 5120, the
+    16 heads of an 8-way tensor-parallel card, kv_lora_rank 512, nope 128,
+    rope 64, V 128) on a 2048-token prompt, through ``mla_apply`` on the
+    kernel, against ``tests/_torch_mla_reference.py`` in float32 with TF32
+    off: within ``MLA_LAYER_TOL`` of max |y|, which the reference in TF32
+    (the control) misses."""
+    import _torch_mla_reference as R
+    from repro_torch.models import attention as MA
+    from repro_torch.models.common import init_params
+
+    acfg = MA.AttnConfig(d_model=5120, n_heads=16, n_kv_heads=16,
+                         head_dim=128, kv_lora_rank=512, qk_rope_dim=64,
+                         v_head_dim=128)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    params = init_params(MA.mla_defs(acfg), g, device=cuda)
+    x = torch.randn((1, 2048, 5120), generator=g, device=cuda)
+    launches = A.flash_attention.launches
+    split = A.flash_attention.split_v_launches
+    y, _ = MA.mla_apply(params, acfg, x)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == launches + 1
+    assert A.flash_attention.split_v_launches == split + 1
+    kw = dict(n_heads=16, nope_dim=128, rope_dim=64, v_dim=128)
+    ref = R.mla_prefill(params, x, **kw)
+    control = R.mla_prefill(params, x, tf32=True, **kw)
+    err = _rel_t(y, ref)
+    err_control = _rel_t(control, ref)
+    assert err < MLA_LAYER_TOL < err_control, (err, err_control)
 
 
 @pytest.mark.gpu
@@ -841,13 +946,17 @@ SMOKE_ARCHS = ["qwen1.5-0.5b", "qwen2.5-3b", "gemma-2b", "command-r-plus-104b",
                "llama4-scout-17b-a16e", "deepseek-v2-236b", "internvl2-76b",
                "zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2"]
 MODEL_TOL = 1e-4     # fp32 SMOKE models, card against CPU: the sums' order
+# one MLA layer at DeepSeek-V2's widths, card against the float32
+# reference with TF32 off: the sums' order over 5120 and 512 terms (read
+# 1.0-1.3e-6 on an H100; the reference in TF32 reads 5.6e-4)
+MLA_LAYER_TOL = 2e-5
 
 
 def _prefill_launches(cfg) -> int:
-    """Attention kernel launches a prefill: one a GQA layer (MLA and the
+    """Attention kernel launches a prefill: one a GQA or MLA layer (the
     recurrent layers have none), one a Zamba2 superblock (its shared
     block), and the encoder's and decoder's self-attention a layer each."""
-    if cfg.kv_lora_rank or cfg.xlstm:
+    if cfg.xlstm:
         return 0
     if cfg.mamba_per_attn:
         return cfg.n_layers // cfg.mamba_per_attn
@@ -889,9 +998,12 @@ def test_each_smoke_arch_on_the_card_matches_the_port_on_the_cpu(
     monkeypatch.setattr(A, "flash_attention_plain", lambda *a, **k: (
         _ for _ in ()).throw(AssertionError("plain version on the card")))
     before = A.flash_attention.launches
+    split = A.flash_attention.split_v_launches
     out, cache = model.prefill(card_params, {k: v.to(cuda)
                                              for k, v in batch.items()}, 40)
     assert A.flash_attention.launches - before == _prefill_launches(cfg)
+    # the SMOKE MLA's qk 24 and V 16 pad to (32, 32): no split instance
+    assert A.flash_attention.split_v_launches == split
     assert _rel_t(out, ref) < MODEL_TOL
     tok = ref[:, -1].argmax(-1)
     for _ in range(4):
@@ -1219,9 +1331,8 @@ def test_the_one_rank_sharded_step_equals_the_plain_step(nccl_mesh, cuda,
                      {k: getattr(p.detach(), "full_tensor", p.detach)()
                       for k, p in state.params.named_parameters()}))
     (n_want, want, want_params), (n_got, got, got_params) = runs
-    # MLA (deepseek) and xLSTM take no kernel; every other arch's GQA does
-    assert n_got == n_want and (n_got > 0) == (
-        not (cfg.kv_lora_rank or cfg.xlstm))
+    # xLSTM takes no kernel; every other arch's GQA or MLA does
+    assert n_got == n_want and (n_got > 0) == (not cfg.xlstm)
     for k in ("loss", "grad_norm", "lr"):
         assert abs(got[k] - want[k]) <= 1e-6 * abs(want[k]), (k, got, want)
     for k, p in want_params.items():
